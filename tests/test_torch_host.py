@@ -1,0 +1,118 @@
+"""The port's host tables, types and copied host modules equal the JAX
+package's: coding tables (ZC, SC, Qe), the MQ encoder, quantizer
+signaling, plan geometry and steps, and the verbatim back half."""
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+
+from bucketeer_tpu.codec import cxd as j_cxd
+from bucketeer_tpu.codec import dwt as j_dwt
+from bucketeer_tpu.codec import mq as j_mq
+from bucketeer_tpu.codec import pipeline as j_pipeline
+from bucketeer_tpu.codec import quant as j_quant
+from bucketeer_tpu.codec import t1 as j_t1
+from bucketeer_tpu_torch.codec import dwt as t_dwt
+from bucketeer_tpu_torch.codec import mq as t_mq
+from bucketeer_tpu_torch.codec import pipeline as t_pipeline
+from bucketeer_tpu_torch.codec import quant as t_quant
+from bucketeer_tpu_torch.codec import t1 as t_t1
+from bucketeer_tpu_torch.kernels import fused_t1 as t_fused
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_coding_tables_equal():
+    np.testing.assert_array_equal(t_t1.zc_stack(), j_cxd._zc_stack())
+    for got, ref in zip(t_t1.sc_tables(), j_cxd._sc_tables()):
+        np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(np.asarray(t_mq.QE_TABLE, np.int32),
+                                  j_cxd._QE_ARR)
+    assert t_t1.BAND_CLS == j_t1.BAND_CLS
+    assert (t_mq.CTX_RL, t_mq.CTX_UNIFORM, t_mq.N_CONTEXTS) == (
+        j_mq.CTX_RL, j_mq.CTX_UNIFORM, j_mq.N_CONTEXTS)
+    assert t_mq.initial_states() == j_mq.initial_states()
+    tabs = t_fused.tables("cpu")
+    np.testing.assert_array_equal(tabs["zc"].numpy(), j_cxd._zc_stack())
+    np.testing.assert_array_equal(tabs["qe"].numpy(), j_cxd._QE_ARR)
+
+
+def test_kernel_sizing_equal():
+    for L in (1, 2, 5, 8, 16, 32):
+        assert t_fused.max_syms(L) == j_cxd.max_syms(L)
+        assert t_fused.mq_capacity(t_fused.max_syms(L)) == \
+            j_cxd.mq_capacity(j_cxd.max_syms(L))
+    assert t_fused.MQ_ROW_BYTES == j_cxd.MQ_ROW_BYTES
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_mq_encoder_equal(seed):
+    rng = np.random.default_rng(seed)
+    syms = rng.integers(0, 19, 3000) | (rng.integers(0, 2, 3000) << 5)
+    a, b = t_mq.MQEncoder(), j_mq.MQEncoder()
+    lens = []
+    for s in syms:
+        a.encode(int(s) >> 5, int(s) & 31)
+        b.encode(int(s) >> 5, int(s) & 31)
+        lens.append((a.truncation_length(), b.truncation_length()))
+    assert all(x == y for x, y in lens)
+    assert a.flush() == b.flush()
+
+
+def test_quant_signaling_equal():
+    assert (t_quant.FRAC_BITS, t_quant.GUARD_BITS) == (
+        j_quant.FRAC_BITS, j_quant.GUARD_BITS)
+    for band in ("LL", "HL", "LH", "HH"):
+        for bd in (8, 12, 16):
+            for extra in (0, 1):
+                assert dataclasses.astuple(t_quant.signal_reversible(
+                    bd, band, extra_bits=extra)) == dataclasses.astuple(
+                    j_quant.signal_reversible(bd, band, extra_bits=extra))
+            for delta in (0.013, 0.5, 1.0, 2.7, 40.0):
+                assert dataclasses.astuple(t_quant.signal_irreversible(
+                    delta, bd, band)) == dataclasses.astuple(
+                    j_quant.signal_irreversible(delta, bd, band))
+
+
+@pytest.mark.parametrize("levels,lossless", [(1, True), (5, True),
+                                             (6, False), (3, False)])
+def test_synthesis_gains_equal(levels, lossless):
+    assert t_dwt.synthesis_gains(levels, lossless) == \
+        j_dwt.synthesis_gains(levels, lossless)
+    assert t_dwt.subband_shapes(97, 64, levels) == \
+        j_dwt.subband_shapes(97, 64, levels)
+
+
+@pytest.mark.parametrize("shape", [
+    (64, 64, 1, 5, True, 8, 0.5, None),
+    (512, 512, 3, 6, True, 8, 1.0, True),
+    (512, 512, 3, 6, False, 8, 2.0, True),
+    (96, 37, 1, 3, False, 16, 512.0, None),
+    (33, 17, 3, 2, False, 8, 0.5, False),
+])
+def test_plan_and_step_map_equal(shape):
+    """The per-plan state both packages share: slot geometry, signaled
+    quantizers and the quantizer step map."""
+    tp = t_pipeline.make_plan(*shape)
+    jp = j_pipeline.make_plan(*shape)
+    assert [dataclasses.astuple(s) for s in tp.slots] == \
+        [dataclasses.astuple(s) for s in jp.slots]
+    assert (tp.tile_h, tp.tile_w, tp.n_comps, tp.levels, tp.lossless,
+            tp.bitdepth, tp.base_delta, tp.used_mct) == (
+        jp.tile_h, jp.tile_w, jp.n_comps, jp.levels, jp.lossless,
+        jp.bitdepth, jp.base_delta, jp.used_mct)
+    np.testing.assert_array_equal(t_pipeline._step_map(tp),
+                                  j_pipeline._step_map(jp))
+
+
+@pytest.mark.parametrize("rel", [
+    "codec/rate.py", "codec/t2.py", "codec/codestream.py", "codec/jp2.py",
+    "codec/tiff.py", "converters/base.py"])
+def test_host_module_is_verbatim_copy(rel):
+    """The back half is copied, not re-implemented: same source text."""
+    with open(os.path.join(REPO, "bucketeer_tpu_torch", rel)) as fh:
+        got = fh.read()
+    with open(os.path.join(REPO, "bucketeer_tpu", rel)) as fh:
+        ref = fh.read()
+    assert got == ref

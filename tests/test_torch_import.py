@@ -1,0 +1,66 @@
+"""The PyTorch port stands alone: importing every module of
+bucketeer_tpu_torch loads neither JAX nor anything of bucketeer_tpu."""
+import json
+import os
+import subprocess
+import sys
+
+import bucketeer_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+before = set(sys.modules)
+import bucketeer_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    bucketeer_tpu_torch.__path__, "bucketeer_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+new = sorted(set(sys.modules) - before)
+print(json.dumps({"modules": names, "new": new}))
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                         capture_output=True, text=True, check=True,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    # Every module of the package was imported, the kernel module too.
+    assert "bucketeer_tpu_torch.kernels.fused_t1" in res["modules"]
+    assert "bucketeer_tpu_torch.converters.cuda" in res["modules"]
+    bad = [m for m in res["new"]
+           if m == "jax" or m.startswith(("jax.", "jaxlib"))
+           or m == "bucketeer_tpu" or m.startswith("bucketeer_tpu.")]
+    assert bad == []
+
+
+def _port_sources() -> list:
+    root = bucketeer_tpu_torch.__path__[0]
+    paths = [os.path.join(d, f) for d, _, files in os.walk(root)
+             for f in files if f.endswith(".py")]
+    return sorted(paths) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def test_port_sources_name_no_jax_import():
+    """No source line of the port or of chip_smoke.py imports JAX or the
+    JAX package, even behind a function (a lazy import would escape the
+    probe above)."""
+    paths = _port_sources()
+    rel = {os.path.relpath(p, REPO) for p in paths}
+    assert {"bucketeer_tpu_torch/kernels/fused_t1.py",
+            "bucketeer_tpu_torch/codec/encoder.py",
+            "chip_smoke.py"} <= rel
+    offenders = []
+    for path in paths:
+        with open(path) as fh:
+            for n, line in enumerate(fh, 1):
+                s = line.strip()
+                if s.startswith(("import jax", "from jax",
+                                 "import bucketeer_tpu ",
+                                 "from bucketeer_tpu ",
+                                 "from bucketeer_tpu.",
+                                 "import bucketeer_tpu.")):
+                    offenders.append(f"{path}:{n}: {s}")
+    assert offenders == []
