@@ -1,8 +1,10 @@
 """PyTorch and CUDA port of bucketeer_tpu's JPEG 2000 encoder.
 
 TIFF -> JP2 through :class:`converters.cuda.CudaConverter`, with the
-sample transform in PyTorch and EBCOT Tier-1 as a hand-written Hopper
-kernel (``csrc/fused_t1.cu``). The package imports ``torch`` and
-``numpy`` and nothing of the JAX package; its entry points run on the
-card unless the caller passes ``device="cpu"``.
+sample transform in PyTorch and EBCOT Tier-1 on hand-written Hopper
+kernels: fused (``csrc/fused_t1.cu``), or split into the device CX/D
+scan (``csrc/cxd_scan.cu``) and a host MQ replay (``csrc/host_mq.cpp``).
+The package imports ``torch`` and ``numpy`` and nothing of the JAX
+package; its entry points run on the card unless the caller passes
+``device="cpu"``.
 """

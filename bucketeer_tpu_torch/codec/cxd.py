@@ -1,7 +1,18 @@
-"""Device Tier-1 for one chunk of code-blocks: Mb-clamped launch groups
-of the fused CX/D + MQ kernel (kernels/fused_t1.py), a row-granular
-fetch of the finished byte segments, and host assembly into
-``t1.CodedBlock``s.
+"""Device Tier-1 for one chunk of code-blocks, in one of two shapes:
+
+- **Fused** (:func:`run_device_mq`): Mb-clamped launch groups of the
+  fused CX/D + MQ kernel (kernels/fused_t1.py), a row-granular fetch of
+  the finished byte segments, and host assembly into
+  ``t1.CodedBlock``s.
+- **CX/D split** (:func:`run_cxd`): the same launch groups through the
+  CX/D scan alone (kernels/cxd_scan.py); the symbols are packed six bits
+  each on the device (:func:`pack6`), the filled rows are fetched, and
+  the per-pass tables come from the cursor snapshots
+  (:func:`pass_tables`). The host MQ replay (codec/t1_batch.py) turns the
+  streams into ``t1.CodedBlock``s byte-identical to the fused path's.
+
+Both shapes form their launch groups in :func:`_group_launches`, so they
+cannot group blocks differently.
 
 Launch groups: a chunk's blocks are partitioned by their realized scan
 depth ``eff = nbp - floor`` into LAUNCH_PLANE_BUCKETS; each group runs
@@ -16,15 +27,23 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..kernels.cxd_scan import cxd_scan
 from ..kernels.fused_t1 import (CBLK, MQ_ROW_BYTES, fused_t1, max_syms,
                                 mq_capacity)
 from . import t1
 from .frontend import gather_rows
+from .mq import MQEncoder
 from .rate import truncation_lengths
 from .t1 import BAND_CLS
 
-__all__ = ["CBLK", "MQ_ROW_BYTES", "LAUNCH_PLANE_BUCKETS", "max_syms",
-           "mq_capacity", "run_device_mq", "assemble_mq_blocks"]
+__all__ = ["CBLK", "MQ_ROW_BYTES", "LAUNCH_PLANE_BUCKETS", "SYMS_PER_ROW",
+           "PACKED_ROW_BYTES", "CxdStreams", "max_syms", "mq_capacity",
+           "rows_per_block", "pack6", "unpack6", "pass_tables",
+           "replay_block", "run_cxd", "run_device_mq",
+           "assemble_mq_blocks"]
+
+SYMS_PER_ROW = 512                        # fetch granularity (symbols)
+PACKED_ROW_BYTES = SYMS_PER_ROW * 3 // 4  # 6 bits/symbol -> 384 bytes
 
 # Blocks per launch group below which a group merges into the next
 # larger plane bucket instead of paying its own launch.
@@ -85,6 +104,12 @@ def _group_launches(blocks_dev: torch.Tensor, nbps, floors, bandnames,
         args = (blocks_dev.index_select(0, sel),) + tuple(
             torch.as_tensor(m, device=dev) for m in meta)
         yield L, idxs, args
+
+
+def rows_per_block(L: int) -> int:
+    """Packed symbol rows per block at plane budget ``L``
+    (max_syms(L) is a multiple of SYMS_PER_ROW)."""
+    return max_syms(L) // SYMS_PER_ROW
 
 
 def _check_sym_overflow(max_cursor: int, L: int) -> None:
@@ -187,3 +212,159 @@ def run_device_mq(blocks_dev: torch.Tensor, nbps: np.ndarray,
         tot_syms += int(cur_h.sum())
         tot_bytes += int(dlen_h.sum())
     return MqDeviceResult(out, tot_syms, tot_bytes)
+
+
+# --- the CX/D split: device scan, host MQ replay -------------------------
+
+def pack6(buf: torch.Tensor) -> torch.Tensor:
+    """(N, S) uint8 symbols -> (N, S*3/4) uint8 on the buffer's device,
+    four 6-bit symbols per little-endian 24-bit group (``S`` a multiple
+    of 4). Only each symbol's low six bits are packed, so bytes past a
+    block's cursor cannot spill into the symbols before them. The three
+    bytes of each group are formed in uint8 (shifts drop the bits that
+    belong to the next byte), so no temporary is wider than the
+    buffer."""
+    n, m = buf.shape
+    s0, s1, s2, s3 = (buf & 63).reshape(n, m // 4, 4).unbind(-1)
+    out = torch.stack([s0 | (s1 << 6), (s1 >> 2) | (s2 << 4),
+                       (s2 >> 4) | (s3 << 2)], dim=-1)
+    return out.reshape(n, m * 3 // 4)
+
+
+def unpack6(packed: np.ndarray, n_syms: int) -> np.ndarray:
+    """Host-side inverse of :func:`pack6` for one block's byte region:
+    its first ``n_syms`` symbols, uint8."""
+    groups = np.frombuffer(packed.tobytes(), dtype=np.uint8)
+    groups = groups[:-(len(groups) % 3) or None].reshape(-1, 3).astype(
+        np.int32)
+    word = groups[:, 0] | (groups[:, 1] << 8) | (groups[:, 2] << 16)
+    syms = np.stack([(word >> (6 * r)) & 63 for r in range(4)],
+                    axis=1).reshape(-1)
+    return syms[:n_syms].astype(np.uint8)
+
+
+@dataclass
+class CxdStreams:
+    """One chunk's CX/D payload, host-side: packed symbol rows plus the
+    ordered pass tables the MQ replay walks."""
+    payload: np.ndarray        # (R, 384) uint8 packed symbol rows
+    row_offsets: np.ndarray    # (n,) int64 first payload row per block
+    nbps: np.ndarray           # (n,) int32
+    pass_offsets: np.ndarray   # (n+1,) int64 into the pass arrays
+    pass_types: np.ndarray     # int32 0=sigprop 1=magref 2=cleanup
+    pass_planes: np.ndarray    # int32
+    pass_nsyms: np.ndarray     # int32 symbols in this pass
+    pass_dists: np.ndarray     # float64 exact distortion reduction
+    total_syms: int
+
+
+def pass_tables(nbps: np.ndarray, floors: np.ndarray, counts: np.ndarray,
+                dh: np.ndarray, dl: np.ndarray):
+    """Per-block ordered pass lists from the scan's cursor snapshots.
+
+    ``counts[b, o, t]`` is the symbol cursor after pass (o, t) where
+    ``o`` is the plane *offset* from the block's MSB (absolute plane
+    ``p = nbp-1-o``); walking passes in coding order and differencing
+    recovers per-pass symbol counts. Returns (pass_offsets (n+1,)
+    int64, types, planes, nsyms int32 arrays, dists float64, totals
+    (n,) int64).
+    """
+    n = len(nbps)
+    types, planes, nsyms, dists = [], [], [], []
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    totals = np.zeros(n, dtype=np.int64)
+    dist = (dh.astype(np.float64) + dl.astype(np.float64)) / 4.0
+    for b in range(n):
+        prev = 0
+        nbp, flo = int(nbps[b]), int(floors[b])
+        for p in range(nbp - 1, flo - 1, -1):
+            o = nbp - 1 - p
+            for t in ((2,) if p == nbp - 1 else (0, 1, 2)):
+                c = int(counts[b, o, t])
+                types.append(t)
+                planes.append(p)
+                nsyms.append(c - prev)
+                dists.append(dist[b, o, t])
+                prev = c
+        totals[b] = prev
+        offsets[b + 1] = len(types)
+    return (offsets, np.asarray(types, np.int32),
+            np.asarray(planes, np.int32), np.asarray(nsyms, np.int32),
+            np.asarray(dists, np.float64), totals)
+
+
+def replay_block(syms: np.ndarray, nbp: int, n_passes: int,
+                 pass_types, pass_planes, pass_nsyms, pass_dists):
+    """Pure-Python MQ replay of one block's symbol stream: the
+    reference the native replay (codec/t1_batch.py) is tested against.
+    Returns t1.CodedBlock."""
+    mq = MQEncoder()
+    passes = []
+    pos = 0
+    for j in range(n_passes):
+        for s in syms[pos:pos + int(pass_nsyms[j])]:
+            mq.encode(int(s) >> 5, int(s) & 31)
+        pos += int(pass_nsyms[j])
+        passes.append(t1.PassInfo(int(pass_types[j]), int(pass_planes[j]),
+                                  mq.truncation_length(),
+                                  float(pass_dists[j])))
+    data = mq.flush() if n_passes else b""
+    for info in passes:
+        info.cum_length = min(info.cum_length, len(data))
+    return t1.CodedBlock(data, nbp if n_passes else 0, passes)
+
+
+_EMPTY_I32 = np.zeros(0, np.int32)
+_EMPTY_F64 = np.zeros(0, np.float64)
+
+
+def run_cxd(blocks_dev: torch.Tensor, nbps: np.ndarray, floors: np.ndarray,
+            bandnames: list, hs: np.ndarray, ws: np.ndarray,
+            frac_bits: int) -> CxdStreams:
+    """The CX/D scan for one chunk on the blocks' device and its streams
+    on the host: the scan per Mb-clamped launch group, the symbols
+    packed six bits each on the device, and only the packed rows each
+    live block filled fetched. ``blocks_dev``: (n, 64, 64) int32."""
+    n = len(nbps)
+    empty_rows = np.zeros((0, PACKED_ROW_BYTES), np.uint8)
+    per_rows = [empty_rows] * n
+    per_types = [_EMPTY_I32] * n
+    per_planes = [_EMPTY_I32] * n
+    per_nsyms = [_EMPTY_I32] * n
+    per_dists = [_EMPTY_F64] * n
+    total = 0
+    for L, idxs, args in _group_launches(blocks_dev, nbps, floors,
+                                         bandnames, hs, ws):
+        buf, counts, dh, dl, _ = cxd_scan(L, frac_bits, *args)
+        packed = pack6(buf).reshape(-1, PACKED_ROW_BYTES)
+        del buf
+        counts_h, dh_h, dl_h = (x.cpu().numpy() for x in (counts, dh, dl))
+        offs, types, planes, nsyms, dists, totals_g = pass_tables(
+            nbps[idxs], floors[idxs], counts_h, dh_h, dl_h)
+        if totals_g.size:
+            _check_sym_overflow(int(totals_g.max()), L)
+        payload_g, row_offs_g = _fetch_block_rows(
+            packed, -(-totals_g // SYMS_PER_ROW), rows_per_block(L),
+            PACKED_ROW_BYTES)
+        for k, i in enumerate(idxs):
+            per_rows[i] = payload_g[int(row_offs_g[k]):
+                                    int(row_offs_g[k + 1])]
+            sl = slice(int(offs[k]), int(offs[k + 1]))
+            per_types[i] = types[sl]
+            per_planes[i] = planes[sl]
+            per_nsyms[i] = nsyms[sl]
+            per_dists[i] = dists[sl]
+        total += int(totals_g.sum())
+
+    row_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(r) for r in per_rows], out=row_offsets[1:])
+    pass_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(t) for t in per_types], out=pass_offsets[1:])
+    payload = np.concatenate(per_rows) if n else empty_rows
+    return CxdStreams(payload, row_offsets[:-1], nbps.astype(np.int32),
+                      pass_offsets,
+                      np.concatenate(per_types) if n else _EMPTY_I32,
+                      np.concatenate(per_planes) if n else _EMPTY_I32,
+                      np.concatenate(per_nsyms) if n else _EMPTY_I32,
+                      np.concatenate(per_dists) if n else _EMPTY_F64,
+                      total)

@@ -5,7 +5,10 @@ Pipeline: host image array -> [device] level shift + RCT/ICT + tiled
 multi-level DWT + quantization, 64x64 code-block carving and per-plane
 stats (codec/frontend.py) -> [device] fused EBCOT Tier-1, the CX/D scan
 and the MQ coder in one kernel per launch group (codec/cxd.py,
-kernels/fused_t1.py) -> [host] PCRD-opt layer allocation (codec/rate.py)
+kernels/fused_t1.py) — or, with ``device_mq=False, device_cxd=True``,
+the CX/D split: the CX/D scan alone on the device (kernels/cxd_scan.py)
+and the MQ replay of its symbols on the host (codec/t1_batch.py), with
+byte-identical output -> [host] PCRD-opt layer allocation (codec/rate.py)
 -> Tier-2 packets with precincts, any of the five progressions,
 SOP/EPH/PLT markers and per-resolution tile-parts -> codestream ->
 JP2/JPX boxes.
@@ -13,7 +16,7 @@ JP2/JPX boxes.
 Tiles are grouped by shape and cut into chunks of CHUNK_TILES tiles;
 each chunk's front-end and Tier-1 work is queued on the device's stream
 and the host waits only where it needs a result (the stats, then the
-finished byte segments).
+finished byte segments or symbol streams).
 
 The full structural recipe of the reference's Kakadu invocation
 (``Clevels=6 Clayers=6 Cprecincts={256,256},{256,256},{128,128}
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import math
 from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -34,7 +38,7 @@ from . import cxd as cxd_mod
 from . import frontend
 from . import jp2 as jp2box
 from . import rate as rate_mod
-from . import t1, t2
+from . import t1, t1_batch, t2
 from .dwt import synthesis_gains
 from .pipeline import TilePlan, make_plan
 from .quant import FRAC_BITS, GUARD_BITS, SubbandQuant
@@ -43,11 +47,10 @@ CBLK_EXP = 6  # 64x64 code-blocks (reference recipe Cblk={64,64})
 
 CHUNK_TILES = 8     # same-shape tiles per front-end batch
 OVERLAP_DEPTH = 2   # queued-but-unresolved chunks
+HOST_QUEUE_DEPTH = 2    # unfinished host replays before back-pressure
 
 
 @dataclass
-
-
 class EncodeParams:
     lossless: bool = True
     levels: int = 5
@@ -63,10 +66,12 @@ class EncodeParams:
     tparts_r: bool = False             # tile-part per resolution (ORGtparts=R)
     mct: str = "auto"                  # multi-component transform: auto|on|off
     comment: str = "bucketeer-tpu jp2 encoder"
-    # Tier-1 placement, kept so parameter sets carry over from the JAX
-    # package. This package runs Tier-1 on the device only: None and
-    # device_mq=True mean that; device_mq=False or device_cxd=True
-    # (the host-MQ split) raise NotImplementedError.
+    # Tier-1 placement, as in the JAX package. device_mq None or True:
+    # the fused device Tier-1 (MQ wins over device_cxd, as the JAX
+    # package picks on a TPU). device_mq=False with device_cxd=True: the
+    # CX/D split, device scan and host MQ replay. device_mq=False
+    # without device_cxd is the host Tier-1, which is not ported and
+    # raises NotImplementedError.
     device_cxd: bool | None = None
     device_mq: bool | None = None
 
@@ -219,8 +224,6 @@ def _mct_helps(img: np.ndarray, lossless: bool,
 
 
 @dataclass
-
-
 class _Band:
     name: str
     res: int
@@ -335,8 +338,6 @@ def _block_layers(blk: t1.CodedBlock,
 
 
 @dataclass
-
-
 class _PrecinctRec:
     comp: int
     res: int
@@ -489,8 +490,6 @@ def _band_weight(slot, gains) -> float:
 
 
 @dataclass
-
-
 class _Chunk:
     """Up to CHUNK_TILES same-shape tiles plus the host-side metadata
     joining the device's canonical block order to Tier-2's cells."""
@@ -561,10 +560,12 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
         raise NotImplementedError(
             "mesh-sharded encodes (the JAX package's data/tile mesh) are "
             "not ported; encode on one device")
-    if params.device_mq is False or params.device_cxd:
+    use_mq = params.device_mq is not False
+    if not use_mq and not params.device_cxd:
         raise NotImplementedError(
-            "only the fused device Tier-1 (device_mq) is ported; the "
-            "host-MQ split (device_cxd) and the host Tier-1 are not")
+            "device_mq=False without device_cxd asks for the host Tier-1, "
+            "which is not ported; use the fused device Tier-1 "
+            "(device_mq) or the CX/D split (device_cxd=True)")
     h, w = img.shape[:2]
     n_comps = 1 if img.ndim == 2 else img.shape[2]
     if n_comps not in (1, 3):
@@ -639,15 +640,38 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
         chunk.fres = chunk.pending.resolve_stats()
         chunk.pending = None
 
-    def tier1(chunk: _Chunk, floors: np.ndarray, release: bool):
-        res = cxd_mod.run_device_mq(
-            chunk.fres.blocks, chunk.fres.nbps, floors, chunk.bandnames,
-            chunk.hs, chunk.ws, frac_bits)
+    def host_replay(chunk: _Chunk, streams) -> cxd_mod.MqDeviceResult:
+        """The split's host half: MQ replay of the device's symbols."""
+        blocks = t1_batch.encode_cxd(streams)
+        if not params.lossless:
+            _correct_distortions(blocks, chunk.fres)
+        return cxd_mod.MqDeviceResult(blocks, streams.total_syms,
+                                      sum(len(b.data) for b in blocks))
+
+    def tier1(chunk: _Chunk, floors: np.ndarray, release: bool,
+              futs: list) -> None:
+        """Queue one chunk's Tier-1 result onto ``futs``. The fused path
+        finishes here; the split's host replay runs on the replay worker
+        while the caller goes on to the next chunk's device work."""
+        args = (chunk.fres.blocks, chunk.fres.nbps, floors,
+                chunk.bandnames, chunk.hs, chunk.ws, frac_bits)
+        if use_mq:
+            res = cxd_mod.run_device_mq(*args)
+            if not params.lossless:
+                _correct_distortions(res.blocks, chunk.fres)
+            fut: Future = Future()
+            fut.set_result(res)
+        else:
+            streams = cxd_mod.run_cxd(*args)
+            # Back-pressure: at most HOST_QUEUE_DEPTH unfinished replays,
+            # so the fetched symbol payloads stay bounded.
+            live = [f for f in futs if not f.done()]
+            if len(live) > HOST_QUEUE_DEPTH:
+                live[0].result()
+            fut = replay_pool.submit(host_replay, chunk, streams)
         if release:
             chunk.fres.blocks = None     # free the device staging buffer
-        if not params.lossless:
-            _correct_distortions(res.blocks, chunk.fres)
-        return res
+        futs.append(fut)
 
     def chunk_floors(margin: float) -> list:
         # Plane capacity could in principle differ between shape
@@ -671,51 +695,62 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
             ofs += c.fres.n_blocks
         return out
 
-    if target is None:
-        # Streaming: floors are all zero, so each chunk flows dispatch
-        # -> resolve -> Tier-1 on its own, with at most OVERLAP_DEPTH
-        # chunks queued ahead of the one being coded.
-        results = []
-        staged: deque = deque()
-        for chunk in chunks + [None] * OVERLAP_DEPTH:
-            if chunk is not None:
+    # The split's host replay runs on one worker beside the main thread
+    # (ctypes releases the interpreter lock for the native replay);
+    # results are collected in submission order, so the output is the
+    # same as a serial replay's.
+    with ThreadPoolExecutor(max_workers=1) as replay_pool:
+        futs: list = []
+        if target is None:
+            # Streaming: floors are all zero, so each chunk flows
+            # dispatch -> resolve -> Tier-1 on its own, with at most
+            # OVERLAP_DEPTH chunks queued ahead of the one being coded.
+            staged: deque = deque()
+            for chunk in chunks + [None] * OVERLAP_DEPTH:
+                if chunk is not None:
+                    dispatch(chunk)
+                    staged.append(chunk)
+                if staged and (chunk is None
+                               or len(staged) >= OVERLAP_DEPTH):
+                    c = staged.popleft()
+                    resolve(c)
+                    tier1(c, np.zeros(c.fres.n_blocks, np.int32), True,
+                          futs)
+            results = [f.result() for f in futs]
+        else:
+            # Rate-targeted: floors need global stats, so every chunk's
+            # front-end runs first (blocks stay on the device — a later
+            # margin attempt re-codes deeper planes), then Tier-1 per
+            # chunk.
+            for chunk in chunks:
                 dispatch(chunk)
-                staged.append(chunk)
-            if staged and (chunk is None or len(staged) >= OVERLAP_DEPTH):
-                c = staged.popleft()
-                resolve(c)
-                results.append(tier1(c, np.zeros(c.fres.n_blocks,
-                                                  np.int32), True))
-    else:
-        # Rate-targeted: floors need global stats, so every chunk's
-        # front-end runs first (blocks stay on the device — a later
-        # margin attempt re-codes deeper planes), then Tier-1 per chunk.
-        for chunk in chunks:
-            dispatch(chunk)
-        for chunk in chunks:
-            resolve(chunk)
-        margin = 3.0
-        for attempt in range(3):
-            floors_by_chunk = chunk_floors(margin)
-            results = [tier1(chunk, floors, False)
-                       for chunk, floors in zip(chunks, floors_by_chunk)]
-            avail = sum(len(b.data) for res in results for b in res.blocks)
-            if avail >= 1.05 * target:
-                if attempt == 2 or avail >= 2.0 * target:
-                    # Out of retries, or supply is so abundant that
-                    # PCRD's cut sits far above the floor tail.
-                    break
-                # Supply is snug: compare the realized PCRD cut slope
-                # against the floor threshold.
-                flat = [b for res in results for b in res.blocks]
-                wts_all = np.concatenate([c.wts for c in chunks])
-                realized = rate_mod.cut_slope(flat, wts_all,
-                                              target * 0.96)
-                if realized >= floor_lam[0] / 4.0:
-                    break
-            # Estimator undershoot: lower the floors and redo — PCRD
-            # needs enough passes to spend the budget.
-            margin *= 4.0
+            for chunk in chunks:
+                resolve(chunk)
+            margin = 3.0
+            for attempt in range(3):
+                floors_by_chunk = chunk_floors(margin)
+                futs = []
+                for chunk, floors in zip(chunks, floors_by_chunk):
+                    tier1(chunk, floors, False, futs)
+                results = [f.result() for f in futs]
+                avail = sum(len(b.data) for res in results
+                            for b in res.blocks)
+                if avail >= 1.05 * target:
+                    if attempt == 2 or avail >= 2.0 * target:
+                        # Out of retries, or supply is so abundant that
+                        # PCRD's cut sits far above the floor tail.
+                        break
+                    # Supply is snug: compare the realized PCRD cut
+                    # slope against the floor threshold.
+                    flat = [b for res in results for b in res.blocks]
+                    wts_all = np.concatenate([c.wts for c in chunks])
+                    realized = rate_mod.cut_slope(flat, wts_all,
+                                                  target * 0.96)
+                    if realized >= floor_lam[0] / 4.0:
+                        break
+                # Estimator undershoot: lower the floors and redo — PCRD
+                # needs enough passes to spend the budget.
+                margin *= 4.0
 
     all_coded: list = []
     block_weights: list = []

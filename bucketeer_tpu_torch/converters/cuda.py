@@ -21,9 +21,16 @@ class CudaConverter:
 
     name = "CUDA"
 
-    def __init__(self, device="cuda", lossy_rate: float = LOSSY_RATE,
-                 jpx: bool = True) -> None:
+    def __init__(self, device="cuda", device_cxd: bool | None = None,
+                 device_mq: bool | None = None,
+                 lossy_rate: float = LOSSY_RATE, jpx: bool = True) -> None:
         self.device = device
+        # Tier-1 placement, passed into EncodeParams as the JAX
+        # package's TpuConverter does: device_mq=False with
+        # device_cxd=True runs the CX/D split (device scan, host MQ
+        # replay); the defaults run the fused device Tier-1.
+        self.device_cxd = device_cxd
+        self.device_mq = device_mq
         self.lossy_rate = lossy_rate
         self.jpx = jpx
         self.last_stats: dict = {}
@@ -45,6 +52,8 @@ class CudaConverter:
         params = EncodeParams.kakadu_recipe(
             lossless=conversion == Conversion.LOSSLESS,
             rate=self.lossy_rate)
+        params.device_cxd = self.device_cxd
+        params.device_mq = self.device_mq
         # Tiny images can't sustain 6 levels; clamp like encoders do.
         while params.levels > 1 and (min(h, w) >> params.levels) < 4:
             params.levels -= 1

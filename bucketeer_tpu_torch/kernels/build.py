@@ -1,0 +1,154 @@
+"""Build and load the package's native libraries at first use.
+
+Each :class:`Library` compiles its sources from ``csrc/`` into
+BUILD_DIR with nvcc (the CUDA kernels) or g++ (the host MQ replay),
+names the shared library by the hash of its sources, headers and
+flags, and loads it with ctypes. A failed build raises with the
+compiler's output; nothing falls back to another implementation.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
+
+
+NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"   # where nvcc is when not on PATH
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if not os.path.exists(NVCC_DEFAULT):
+        raise RuntimeError("nvcc not found on PATH or at " + NVCC_DEFAULT
+                           + "; the CUDA kernels cannot be built")
+    return NVCC_DEFAULT
+
+
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found on PATH; the host MQ replay "
+                           "library cannot be built")
+    return found
+
+
+class Library:
+    """One shared library built from ``sources`` (file names under
+    ``csrc/``; headers are hashed, not compiled). ``functions`` maps each
+    exported symbol to its (argtypes, restype). ``launches`` counts the
+    kernel launches its wrapper made."""
+
+    def __init__(self, name: str, sources: tuple, functions: dict,
+                 cuda: bool = True) -> None:
+        self.name = name
+        self.sources = tuple(os.path.join(CSRC, s) for s in sources)
+        self.functions = functions
+        self.cuda = cuda
+        self.launches = 0
+        self.build_seconds = 0.0
+        self.build_log = ""        # compiler output: registers, smem, spills
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def _flags(self) -> tuple:
+        return NVCC_FLAGS if self.cuda else GXX_FLAGS
+
+    def path(self) -> str:
+        """Where this source set's library lives once built."""
+        h = hashlib.sha256(" ".join(self._flags()).encode())
+        for src in self.sources:
+            with open(src, "rb") as fh:
+                h.update(fh.read())
+        return os.path.join(BUILD_DIR,
+                            f"lib{self.name}-{h.hexdigest()[:12]}.so")
+
+    def build(self) -> str:
+        """Compile the library if this source set has none yet; return
+        its path."""
+        with self._lock:
+            return self._build_locked()
+
+    def _build_locked(self) -> str:
+        lib = self.path()
+        if os.path.exists(lib):
+            return lib
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        units = [s for s in self.sources if not s.endswith((".cuh", ".h"))]
+        cmd = [_nvcc() if self.cuda else _gxx(), *self._flags(),
+               "-I", CSRC, "-o", tmp, *units]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        self.build_seconds = time.perf_counter() - t0
+        self.build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {self.name} failed:\n"
+                               + self.build_log)
+        os.replace(tmp, lib)
+        return lib
+
+    def library(self) -> ctypes.CDLL:
+        """The loaded library, built first if needed, with every
+        function's argtypes and restype declared."""
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(self._build_locked())
+                for sym, (argtypes, restype) in self.functions.items():
+                    fn = getattr(lib, sym)
+                    fn.argtypes = argtypes
+                    fn.restype = restype
+                self._lib = lib
+            return self._lib
+
+
+def kernel_library(name: str, sources: tuple, n_ptrs_in: int,
+                   n_ints: int, n_ptrs_out: int) -> Library:
+    """A CUDA kernel library whose one entry ``<name>_launch`` takes
+    input pointers, int scalars, output pointers and the stream, and
+    returns the CUDA error code of the launch."""
+    argtypes = ([ctypes.c_void_p] * n_ptrs_in + [ctypes.c_int] * n_ints
+                + [ctypes.c_void_p] * (n_ptrs_out + 1))
+    return Library(name, sources,
+                   {f"{name}_launch": (argtypes, ctypes.c_int)})
+
+
+def launch(kernel: Library, fn_args: tuple, device) -> None:
+    """Launch ``kernel`` on ``device``'s current stream after the
+    capability check; raise on a refused launch; count it."""
+    from .support import require_kernels
+
+    require_kernels(device)
+    fn = getattr(kernel.library(), f"{kernel.name}_launch")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = fn(*fn_args, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel.name} launch failed: CUDA error {err}")
+    kernel.launches += 1
+
+
+def check_tensor(kernel: str, name: str, t: torch.Tensor, dtype, shape,
+                 device) -> None:
+    """Raise unless ``t`` is what the kernel takes: a contiguous tensor
+    of this dtype and shape on this device."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be a contiguous {dtype} "
+                         f"tensor of shape {tuple(shape)} on {device}; got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")

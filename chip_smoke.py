@@ -1,31 +1,46 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (bucketeer_tpu_torch) on one
 NVIDIA GPU: the quickest proof that the port builds, is right and runs
-its main path on the card.
+its two Tier-1 paths on the card.
 
     python3 chip_smoke.py [--seed N]
 
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit (nvidia-smi);
-2. nvcc build of every kernel of the path (csrc/fused_t1.cu);
-3. each kernel against its plain PyTorch version on the same inputs:
-   synthetic launch groups at L in {8, 16, 32}, frac in {0, 7}, every
-   band class, partial, all-zero and floored-dead blocks, each 64x64 at
-   most (plain side on the host CPU), then one real launch group cut
-   from the full-size image's own front-end output (plain side on the
-   card);
+2. the build of every library the paths use, one compiler process per
+   source, all at once: the kernels csrc/fused_t1.cu, cxd_scan.cu,
+   mq_scan.cu and probe.cu (nvcc, with ptxas's register and spill lines
+   printed) and the host MQ replay csrc/host_mq.cpp (g++); then the
+   capability check (kernels/support.py require_kernels);
+3. each kernel against its plain PyTorch version on the same inputs,
+   one plain run per launch group held against three kernels: fused_t1,
+   cxd_scan, and mq_scan fed cxd_scan's own symbols. Synthetic launch
+   groups at L in {8, 16, 32}, frac in {0, 7}, every band class,
+   partial, all-zero and floored-dead blocks, each 64x64 at most (plain
+   side on the host CPU), then the largest launch group of the
+   full-size image's first lossless chunk (plain side on the card), with
+   each kernel's time, its bound and the serial chain of its longest
+   block;
 4. slice parity: a 256x256 RGB image through the Kakadu recipe, both
    conversions, encode_jp2 on the card byte-identical to encode_jp2 on
-   the CPU (where every kernel runs its plain version);
-5. the main path: a 4096x4096 8-bit RGB TIFF (BASELINE config 1's
-   size) made from --seed through CudaConverter().convert, lossless and
-   lossy, after one warm-up, with wall time, MPix/s, kernel launches and
-   time, Tier-1 volume and peak device memory; then one synchronized
-   convert of each kind timed stage by stage, whose lossy run hands its
+   the CPU (where every kernel runs its plain version), for the fused
+   path and for the CX/D split;
+5. the main paths: a 4096x4096 8-bit RGB TIFF (BASELINE config 1's
+   size) made from --seed through CudaConverter().convert (the fused
+   device Tier-1) and CudaConverter(device_cxd=True,
+   device_mq=False).convert (the CX/D split: device scan, host MQ
+   replay), lossless and lossy, each after one warm-up and with every
+   launch count set to 0 just before it and read just after: wall time,
+   MPix/s, kernel launches and time, bounds, Tier-1 volume, the split's
+   host stages, peak device memory; the split's files must equal the
+   fused path's byte for byte. Then one synchronized convert of each
+   kind per path, timed stage by stage; the fused lossy run hands its
    largest L=8 and L=16 launch groups (frac 7, the rate estimator's
-   floors) to a second kernel-against-plain check on the card;
-6. one JSON line per kernel, then the card line and the result line.
+   floors) to a second kernel-against-plain check on the card, which
+   also holds mq_scan(cxd_scan(x)) against fused_t1(x);
+6. one JSON line with every kernel, then the card line and the result
+   line.
 """
 from __future__ import annotations
 
@@ -38,14 +53,15 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit peak
-FUSED_T1_SRC = "bucketeer_tpu_torch/csrc/fused_t1.cu"
-FUSED_T1_TPU = "bucketeer_tpu/codec/pallas/fused_t1.py:72"
+CSRC = "bucketeer_tpu_torch/csrc/"
+TPU = "bucketeer_tpu/codec/pallas/"
 SIZE = 4096                    # BASELINE config 1: 4096x4096 RGB
 
 
@@ -96,7 +112,7 @@ def write_tiff(path: str, img: np.ndarray) -> None:
         fh.write(data)
 
 
-# --- phase 3: kernel against plain ------------------------------------
+# --- phase 3: kernels against plain -----------------------------------
 
 def synthetic_group(rng, L: int, frac: int):
     """A launch group holding every kind of block: full and partial
@@ -127,49 +143,155 @@ def synthetic_group(rng, L: int, frac: int):
                                          floors, cls, hs, ws)]
 
 
-def compare_outputs(L: int, got, ref) -> float:
-    """Exact comparison of the seven outputs (bytes inside each block's
-    data window only). Returns the max absolute difference seen, which
-    must be 0."""
+def _masked_err(got, ref, lo: int, hi) -> float:
+    """Max |got - ref| over columns [lo, hi[b]) of each row b (bytes
+    outside that window carry no meaning)."""
+    if not got.numel():
+        return 0.0
+    cols = torch.arange(got.shape[1], device=got.device)
+    mask = (cols[None, :] >= lo) & (cols[None, :] < hi.to(cols.dtype)[:, None])
+    diff = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+    return float(torch.where(mask, diff, 0).max())
+
+
+def _err(got, ref) -> float:
+    if not got.numel():
+        return 0.0
+    return float((got.to(torch.float64) - ref.to(torch.float64)).abs().max())
+
+
+def _bits_err(got, ref) -> float:
+    """0 when two float32 tensors agree bit for bit, signed zeros
+    included; else 1."""
+    return 0.0 if torch.equal(got.view(torch.int32),
+                              ref.view(torch.int32)) else 1.0
+
+
+def compare_fused(L: int, got, ref) -> float:
+    """fused_t1's seven outputs, exactly: bytes inside each block's data
+    window, the distortion pairs bit for bit."""
     from bucketeer_tpu_torch.kernels import fused_t1 as ft
 
-    got = [g.cpu() for g in got]
-    ref = [r.cpu() for r in ref]
-    n = got[1].shape[0]
+    n = ref[1].shape[0]
     cap = ft.mq_capacity(ft.max_syms(L))
-    err = 0.0
-    g_rows, r_rows = got[0].reshape(n, cap), ref[0].reshape(n, cap)
-    for b in range(n):
-        d = int(ref[2][b])
-        diff = (g_rows[b, 1:1 + d].to(torch.int32)
-                - r_rows[b, 1:1 + d].to(torch.int32)).abs()
-        if diff.numel():
-            err = max(err, float(diff.max()))
-    for k in (1, 2, 3, 4, 5, 6):
-        diff = (got[k].to(torch.float64) - ref[k].to(torch.float64)).abs()
-        if diff.numel():
-            err = max(err, float(diff.max()))
-    # Distortion pairs must match bit for bit, signed zeros included.
-    for k in (3, 4):
-        if not torch.equal(got[k].view(torch.int32), ref[k].view(torch.int32)):
-            err = max(err, 1.0)
-    return err
+    err = _masked_err(got[0].reshape(n, cap), ref[0].reshape(n, cap), 1,
+                      ref[2] + 1)
+    err = max([err] + [_err(got[k], ref[k]) for k in (1, 2, 3, 4, 5, 6)])
+    return max(err, _bits_err(got[3], ref[3]), _bits_err(got[4], ref[4]))
 
 
-def group_bound(L: int, hs, ws, dlen, cur) -> tuple:
-    """Least time for one launch: each input byte read once (a block's
-    h x w extent, not its 64x64 slot) and each meaningful output byte
-    written once at HBM rate, against one 32-bit operation per coded
-    decision at the non-tensor peak."""
+def compare_scan(got, ref) -> float:
+    """cxd_scan's outputs: symbols over each block's [0, cur), counts and
+    cursors exactly, the distortion pairs bit for bit."""
+    err = _masked_err(got[0], ref[0], 0, ref[4])
+    err = max(err, _err(got[1], ref[1]), _err(got[4], ref[4]))
+    return max(err, _bits_err(got[2], ref[2]), _bits_err(got[3], ref[3]))
+
+
+def compare_mq(got, ref) -> float:
+    """mq_scan's outputs: bytes over each block's [1, 1 + dlen), snaps,
+    data lengths and byte cursors exactly."""
+    err = _masked_err(got[0], ref[0], 1, ref[2] + 1)
+    return max([err] + [_err(got[k], ref[k]) for k in (1, 2, 3)])
+
+
+def flags_of(args):
+    return (args[1] > args[2]).to(torch.int32)
+
+
+def mq_budget(L: int) -> tuple:
+    """(n_steps, byte capacity) for mq_scan over an L-plane scan's
+    symbol rows: the rows' full length, as the fused kernel's coder
+    has."""
+    from bucketeer_tpu_torch.kernels import cxd_scan as cs, mq_scan as ms
+
+    msym = cs.max_syms(L)
+    return msym, ms.mq_capacity(msym)
+
+
+def as_fused(scan, mq):
+    """The fused kernel's output tuple from a CX/D scan and the MQ coder
+    run over its symbols (the plain fused version is this composition)."""
+    from bucketeer_tpu_torch.kernels import fused_t1 as ft
+
+    return (mq[0].reshape(-1, ft.MQ_ROW_BYTES), mq[1], mq[2], scan[2],
+            scan[3], scan[4], mq[3])
+
+
+def run_plain(L: int, frac: int, args) -> tuple:
+    """One plain run of a launch group on its tensors' device: the plain
+    CX/D scan, then the plain MQ coder over its symbols. Returns (scan,
+    mq, scan seconds, mq seconds)."""
+    from bucketeer_tpu_torch.kernels import cxd_scan as cs, mq_scan as ms
+
+    sync = (torch.cuda.synchronize if args[0].is_cuda else lambda: None)
+    t0 = time.perf_counter()
+    scan = cs.cxd_scan_plain(L, frac, *args)
+    sync()
+    t1 = time.perf_counter()
+    mq = ms.mq_scan_plain(L, *mq_budget(L), scan[0], scan[1], scan[4],
+                          flags_of(args))
+    sync()
+    return scan, mq, t1 - t0, time.perf_counter() - t1
+
+
+def run_kernels(L: int, frac: int, args) -> tuple:
+    """The three Tier-1 kernels on one launch group: (fused_t1, cxd_scan,
+    mq_scan over cxd_scan's symbols)."""
+    from bucketeer_tpu_torch.kernels import cxd_scan as cs, fused_t1 as ft
+    from bucketeer_tpu_torch.kernels import mq_scan as ms
+
+    fused = ft.fused_t1(L, frac, *args)
+    scan = cs.cxd_scan(L, frac, *args)
+    mq = ms.mq_scan(L, *mq_budget(L), scan[0], scan[1], scan[4],
+                    flags_of(args))
+    torch.cuda.synchronize()
+    return fused, scan, mq
+
+
+def _bound(n_bytes: int, n_ops: int) -> tuple:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", n_bytes)
+
+
+def _extent_bytes(hs, ws) -> int:
+    return int((hs.to(torch.int64) * ws.to(torch.int64)).sum()) * 4
+
+
+def fused_bound(L: int, hs, ws, dlen, cur) -> tuple:
+    """Least time for one fused_t1 launch: each input byte read once (a
+    block's h x w extent, not its 64x64 slot, and its 5 meta words) and
+    each meaningful output byte written once at HBM rate, against one
+    32-bit operation per coded decision at the non-tensor peak. Returns
+    (ms, bound kind, bytes)."""
     n = hs.shape[0]
-    bytes_in = (int((hs.to(torch.int64) * ws.to(torch.int64)).sum()) * 4
-                + n * 5 * 4)
+    bytes_in = _extent_bytes(hs, ws) + n * 5 * 4
     bytes_out = (int((dlen.to(torch.int64) + 1).sum()) + n * L * 3 * 4 * 3
                  + n * 3 * 4)
-    t_bytes = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
-    t_ops = int(cur.to(torch.int64).sum()) / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), bytes_in + bytes_out
+    return _bound(bytes_in + bytes_out, int(cur.to(torch.int64).sum()))
+
+
+def scan_bound(L: int, hs, ws, cur) -> tuple:
+    """The same for one cxd_scan launch: the extents and meta in; one
+    byte per symbol, the counts and distortion pairs and the cursor out;
+    one operation per decision."""
+    n = hs.shape[0]
+    syms = int(cur.to(torch.int64).sum())
+    return _bound(_extent_bytes(hs, ws) + n * 5 * 4
+                  + syms + n * L * 3 * 4 * 3 + n * 4, syms)
+
+
+def mq_bound(L: int, cur, dlen) -> tuple:
+    """The same for one mq_scan launch: one byte per symbol, the counts,
+    totals and flags in; the coded bytes, snaps, lengths and cursors
+    out; one operation per decision."""
+    n = cur.shape[0]
+    syms = int(cur.to(torch.int64).sum())
+    return _bound(syms + n * L * 3 * 4 + n * 8
+                  + int((dlen.to(torch.int64) + 1).sum()) + n * L * 3 * 4
+                  + n * 8, syms)
 
 
 def time_kernel(fn, reps: int = 5) -> float:
@@ -186,30 +308,30 @@ def time_kernel(fn, reps: int = 5) -> float:
 
 
 class LaunchTimer:
-    """Wraps the fused_t1 wrapper as codec/cxd.py calls it: CUDA events
-    around each launch, plus each launch's volume for the bound."""
+    """Wraps a kernel wrapper as codec/cxd.py calls it: CUDA events
+    around each launch, plus what ``volume(L, args, out)`` keeps of the
+    launch (small tensors only) for its bound."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, volume):
         self.fn = fn
+        self.volume = volume
         self.launches = []
 
-    def __call__(self, L, frac, blocks, *meta):
+    def __call__(self, L, frac, *args):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = self.fn(L, frac, blocks, *meta)
+        out = self.fn(L, frac, *args)
         stop.record()
-        self.launches.append((start, stop, L, meta[3], meta[4], out[2],
-                              out[5]))
+        self.launches.append((start, stop, self.volume(L, args, out)))
         return out
 
     def kernel_ms(self) -> float:
         torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e, *_ in self.launches)
+        return sum(s.elapsed_time(e) for s, e, _ in self.launches)
 
-    def bound_ms(self) -> float:
-        return sum(group_bound(L, hs, ws, dlen, cur)[0]
-                   for _, _, L, hs, ws, dlen, cur in self.launches)
+    def bounds(self, bound) -> list:
+        return [bound(*v) for _, _, v in self.launches]
 
 
 class GroupCapture:
@@ -230,25 +352,29 @@ class GroupCapture:
 
 class StageTimer:
     """Host wall time per stage of an encode, by wrapping the module
-    functions the encoder calls; each wrapper synchronizes the card on
-    entry and exit, so device work lands in the stage that queued it
-    (and chunks no longer overlap — this pass is for the breakdown, not
-    for throughput)."""
+    functions the encoder calls. With ``sync`` each wrapper synchronizes
+    the card on entry and exit, so device work lands in the stage that
+    queued it (and chunks no longer overlap — that pass is for the
+    breakdown, not for throughput); without it a stage is only its host
+    time."""
 
-    def __init__(self, stages):
+    def __init__(self, stages, sync: bool = True):
         self.stages = stages            # [(label, module, attribute)]
+        self.sync = sync
         self.seconds = {label: 0.0 for label, _, _ in stages}
         self.calls = {label: 0 for label, _, _ in stages}
         self._saved = []
 
     def _wrap(self, label, fn):
         def timed(*a, **kw):
-            torch.cuda.synchronize()
+            if self.sync:
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
-                torch.cuda.synchronize()
+                if self.sync:
+                    torch.cuda.synchronize()
                 self.seconds[label] += time.perf_counter() - t0
                 self.calls[label] += 1
         return timed
@@ -263,6 +389,10 @@ class StageTimer:
     def __exit__(self, *exc):
         for mod, attr, fn in reversed(self._saved):
             setattr(mod, attr, fn)
+
+    def line(self) -> str:
+        return ", ".join(f"{k} {v:.3f} ({self.calls[k]}x)"
+                         for k, v in self.seconds.items())
 
 
 def first_chunk_groups(img: np.ndarray):
@@ -300,92 +430,163 @@ def phase_card() -> str:
     return line
 
 
+def libraries() -> dict:
+    from bucketeer_tpu_torch.codec import t1_batch
+    from bucketeer_tpu_torch.kernels import cxd_scan, fused_t1, mq_scan
+    from bucketeer_tpu_torch.kernels import support
+
+    return {"fused_t1": fused_t1.KERNEL, "cxd_scan": cxd_scan.KERNEL,
+            "mq_scan": mq_scan.KERNEL, "probe": support.PROBE,
+            "host_mq": t1_batch.HOST_MQ}
+
+
 def phase_build() -> None:
-    from bucketeer_tpu_torch.kernels import fused_t1 as ft
+    from bucketeer_tpu_torch.kernels.support import require_kernels
 
+    libs = libraries()
     t0 = time.perf_counter()
-    lib = ft.KERNEL.build()
-    ft.KERNEL.library()
-    say(f"build: fused_t1 {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {ft.KERNEL.build_seconds:.2f} s) -> "
-        f"{os.path.relpath(lib)}")
-    for line in ft.KERNEL.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"build: ptxas: {line.strip()}")
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        paths = dict(zip(libs, pool.map(lambda lib: lib.build(),
+                                        libs.values())))
+    say(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.2f} s "
+        "wall, one compiler process each, all at once")
+    for name, lib in libs.items():
+        lib.library()
+        say(f"build: {name} ({'nvcc' if lib.cuda else 'g++'} "
+            f"{lib.build_seconds:.2f} s) -> {os.path.relpath(paths[name])}")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"build: {name} ptxas: {line.strip()}")
+    require_kernels("cuda")
+    say("build: require_kernels(cuda) passed (probe x + 1 exact)")
 
 
-def phase_kernel_vs_plain(rng, img) -> dict:
-    from bucketeer_tpu_torch.kernels import fused_t1 as ft
+def check_group(label: str, L: int, frac: int, args, plain_on: str) -> dict:
+    """One plain run of a launch group held against the three Tier-1
+    kernels at tolerance 0: fused_t1, cxd_scan, and mq_scan over
+    cxd_scan's own symbols. ``args`` on the card; the plain side runs on
+    ``plain_on`` ("cpu" or "cuda"). Returns the worst errors per kernel
+    and the outputs."""
+    t0 = time.perf_counter()
+    fused, scan, mq = run_kernels(L, frac, args)
+    t_k = time.perf_counter() - t0
+    p_args = [a.to(plain_on) for a in args]
+    p_scan, p_mq, t_scan, t_mq = run_plain(L, frac, p_args)
+    dev = args[0].device
 
-    worst = 0.0
+    def back(t):
+        return [x.to(dev) for x in t]
+
+    p_scan, p_mq = back(p_scan), back(p_mq)
+    errs = {"fused_t1": compare_fused(L, fused, as_fused(p_scan, p_mq)),
+            "cxd_scan": compare_scan(scan, p_scan),
+            "mq_scan": compare_mq(mq, p_mq)}
+    where = "on the card" if plain_on == "cuda" else "on host"
+    say(f"kernel-vs-plain: {label} L={L} frac={frac} "
+        f"blocks={args[0].shape[0]} (floored {int((args[2] > 0).sum())}) "
+        f"symbols={int(p_scan[4].sum())} bytes={int(p_mq[2].sum())}: "
+        + ", ".join(f"{k} max_abs_err={v}" for k, v in errs.items())
+        + f" (tolerance 0); kernels {t_k:.3f} s, plain {where} "
+        f"{t_scan:.1f} s scan + {t_mq:.1f} s MQ")
+    for name, err in errs.items():
+        if err != 0:
+            fail(f"{name} differs from its plain version on {label} L={L} "
+                 f"frac={frac}")
+    return {"errs": errs, "plain_s": (t_scan, t_mq), "fused": fused,
+            "scan": scan, "mq": mq}
+
+
+def check_chain(label: str, L: int, res: dict) -> float:
+    """mq_scan(cxd_scan(x)) against fused_t1(x), both kernels."""
+    err = compare_fused(L, res["fused"], as_fused(res["scan"], res["mq"]))
+    say(f"chain: {label} L={L} mq_scan(cxd_scan(x)) vs fused_t1(x) "
+        f"max_abs_err={err} (tolerance 0)")
+    if err != 0:
+        fail(f"mq_scan(cxd_scan(x)) differs from fused_t1(x) on {label}")
+    return err
+
+
+def time_group(L: int, frac: int, args, res: dict) -> dict:
+    """Each Tier-1 kernel's time on one real launch group by CUDA
+    events, its bound, and the serial chain: the group's longest block
+    launched alone (one thread, no other lane in its warp)."""
+    from bucketeer_tpu_torch.kernels import cxd_scan as cs, fused_t1 as ft
+    from bucketeer_tpu_torch.kernels import mq_scan as ms
+
+    fused, scan, mq = res["fused"], res["scan"], res["mq"]
+    flags = flags_of(args)
+    ms_of = {
+        "fused_t1": time_kernel(lambda: ft.fused_t1(L, frac, *args)),
+        "cxd_scan": time_kernel(lambda: cs.cxd_scan(L, frac, *args)),
+        "mq_scan": time_kernel(lambda: ms.mq_scan(
+            L, *mq_budget(L), scan[0], scan[1], scan[4], flags)),
+    }
+    bound_of = {
+        "fused_t1": fused_bound(L, args[4], args[5], fused[2], fused[5]),
+        "cxd_scan": scan_bound(L, args[4], args[5], scan[4]),
+        "mq_scan": mq_bound(L, scan[4], mq[2]),
+    }
+    b = int(torch.argmax(scan[4]))
+    one = [a[b:b + 1].contiguous() for a in args]
+    chain = {"fused_t1": time_kernel(lambda: ft.fused_t1(L, frac, *one)),
+             "cxd_scan": time_kernel(lambda: cs.cxd_scan(L, frac, *one))}
+    t_scan, t_mq = res["plain_s"]
+    plain_ms = {"fused_t1": (t_scan + t_mq) * 1e3, "cxd_scan": t_scan * 1e3,
+                "mq_scan": t_mq * 1e3}
+    n_dec = int(scan[4][b])
+    for name in ms_of:
+        bound, by, moved = bound_of[name]
+        say(f"kernel time: {name} L={L} {args[0].shape[0]} blocks: "
+            f"{ms_of[name]:.3f} ms/launch, bound {bound:.6f} ms by {by} "
+            f"({moved} B), plain on the card {plain_ms[name]:.0f} ms"
+            + (f"; serial chain (longest block alone, {n_dec} decisions) "
+               f"{chain[name]:.3f} ms, "
+               f"{chain[name] * 1e6 / max(n_dec, 1):.1f} ns per decision"
+               if name in chain else ""))
+    return {name: {"ms": ms_of[name], "plain_ms": plain_ms[name],
+                   "bound_ms": bound_of[name][0],
+                   "bound_by": bound_of[name][1]} for name in ms_of}
+
+
+def phase_kernel_vs_plain(rng, img) -> tuple:
+    worst = {"fused_t1": 0.0, "cxd_scan": 0.0, "mq_scan": 0.0}
     for L in (8, 16, 32):
         for frac in (0, 7):
-            cpu = synthetic_group(rng, L, frac)
-            t0 = time.perf_counter()
-            got = ft.fused_t1(L, frac, *(a.cuda() for a in cpu))
-            torch.cuda.synchronize()
-            t_k = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            ref = ft.fused_t1(L, frac, *cpu)       # CPU: plain version
-            t_p = time.perf_counter() - t0
-            err = compare_outputs(L, got, ref)
-            worst = max(worst, err)
-            say(f"kernel-vs-plain: synthetic L={L} frac={frac} "
-                f"blocks={cpu[0].shape[0]} symbols="
-                f"{int(ref[5].sum())} max_abs_err={err} (tolerance 0) "
-                f"(kernel {t_k:.3f} s, plain on host {t_p:.1f} s)")
-            if err != 0:
-                fail(f"fused_t1 differs from its plain version at L={L} "
-                     f"frac={frac}")
+            args = [a.cuda() for a in synthetic_group(rng, L, frac)]
+            res = check_group("synthetic", L, frac, args, "cpu")
+            for k, v in res["errs"].items():
+                worst[k] = max(worst[k], v)
 
     # One real launch group of the full-size image: the largest of its
-    # first lossless chunk.
+    # first lossless chunk, plain side on the card.
     groups = first_chunk_groups(img)
     L, _, args = max(groups, key=lambda g: len(g[1]))
-    res = check_image_group("lossless first chunk", L, 0, args)
-    got = res.pop("got")
-    # The serial chain: the group's longest block launched alone (one
-    # thread, no other lane in its warp) — the least time any schedule
-    # of this group could take with one thread per block.
-    b = int(torch.argmax(got[5]))
-    one = [a[b:b + 1].contiguous() for a in args]
-    chain_ms = time_kernel(lambda: ft.fused_t1(L, 0, *one))
-    say(f"kernel serial chain: longest block of the group alone "
-        f"({int(got[5][b])} decisions, {int(got[2][b])} bytes): "
-        f"{chain_ms:.3f} ms, {chain_ms * 1e6 / max(int(got[5][b]), 1):.1f}"
-        f" ns per decision")
-    res["max_abs_err"] = max(worst, res["max_abs_err"])
-    return res
+    res = check_group("image group (lossless first chunk)", L, 0, args,
+                      "cuda")
+    for k, v in res["errs"].items():
+        worst[k] = max(worst[k], v)
+    worst["fused_t1"] = max(worst["fused_t1"],
+                            check_chain("lossless first chunk", L, res))
+    return worst, time_group(L, 0, args, res)
 
 
-def check_image_group(label: str, L: int, frac: int, args) -> dict:
-    """Time one real launch group on the card and hold the kernel's
-    outputs against the plain version's, run on the card on the same
-    inputs (tolerance 0)."""
-    from bucketeer_tpu_torch.kernels import fused_t1 as ft
+def phase_probe() -> dict:
+    """The capability probe against its plain version, x + 1, which is
+    also the one PyTorch call that computes the same function."""
+    from bucketeer_tpu_torch.kernels import support
 
-    ms = time_kernel(lambda: ft.fused_t1(L, frac, *args))
-    got = ft.fused_t1(L, frac, *args)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = ft.fused_t1_plain(L, frac, *args)         # plain, on the card
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    err = compare_outputs(L, got, ref)
-    bound, bound_by, moved = group_bound(L, args[4], args[5], got[2],
-                                         got[5])
-    floored = int((args[2] > 0).sum())
-    say(f"kernel-vs-plain: image group ({label}) L={L} frac={frac} "
-        f"blocks={args[0].shape[0]} (floored {floored}) "
-        f"symbols={int(got[5].sum())} bytes={int(got[2].sum())} "
-        f"max_abs_err={err} (tolerance 0); kernel {ms:.3f} ms, plain on "
-        f"the card {plain_ms:.0f} ms, bound {bound:.6f} ms by {bound_by} "
-        f"({moved} B)")
+    x = torch.arange(8, dtype=torch.int32, device="cuda")
+    err = _err(support.probe(x), x + 1)
+    ms = time_kernel(lambda: support.probe(x))
+    plain_ms = time_kernel(lambda: x + 1)
+    bound, by, moved = _bound(2 * x.numel() * 4, x.numel())
+    say(f"kernel-vs-plain: probe (8,) int32 max_abs_err={err} (tolerance "
+        f"0); {ms:.4f} ms/launch, x + 1 {plain_ms:.4f} ms, bound "
+        f"{bound:.9f} ms by {by} ({moved} B)")
     if err != 0:
-        fail(f"fused_t1 differs from its plain version on the image group "
-             f"({label})")
+        fail("the probe kernel differs from x + 1")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "got": got}
+            "bound_ms": bound, "bound_by": by, "library_ms": plain_ms}
 
 
 def phase_parity(rng) -> None:
@@ -398,15 +599,24 @@ def phase_parity(rng) -> None:
         t0 = time.perf_counter()
         on_card = encode_jp2(img, 8, params, jpx=True, device="cuda")
         t_card = time.perf_counter() - t0
+        params.device_mq, params.device_cxd = False, True
+        t0 = time.perf_counter()
+        split = encode_jp2(img, 8, params, jpx=True, device="cuda")
+        t_split = time.perf_counter() - t0
+        params.device_mq = params.device_cxd = None
         t0 = time.perf_counter()
         on_cpu = encode_jp2(img, 8, params, jpx=True, device="cpu")
         t_cpu = time.perf_counter() - t0
         kind = "lossless" if lossless else "lossy"
-        say(f"parity 256x256 {kind}: card {len(on_card)} B in "
-            f"{t_card:.2f} s, cpu {len(on_cpu)} B in {t_cpu:.1f} s, "
-            f"identical={on_card == on_cpu}")
+        say(f"parity 256x256 {kind}: card fused {len(on_card)} B in "
+            f"{t_card:.2f} s, card split {len(split)} B in {t_split:.2f} "
+            f"s, cpu {len(on_cpu)} B in {t_cpu:.1f} s, identical="
+            f"{on_card == on_cpu == split}")
         if on_card != on_cpu:
             fail(f"256x256 {kind}: card bytes differ from CPU bytes")
+        if split != on_cpu:
+            fail(f"256x256 {kind}: the split's card bytes differ from the "
+                 "CPU bytes")
 
 
 def check_jp2(data: bytes, img: np.ndarray, lossless: bool) -> str:
@@ -435,94 +645,191 @@ def check_jp2(data: bytes, img: np.ndarray, lossless: bool) -> str:
     return "structure ok, decodes to the source exactly (OpenJPEG)"
 
 
-def phase_main(img, workdir) -> dict:
-    from bucketeer_tpu_torch.codec import cxd
-    from bucketeer_tpu_torch.converters import Conversion, CudaConverter
-    from bucketeer_tpu_torch.kernels import fused_t1 as ft
-
-    h, w = img.shape[:2]
-    src = os.path.join(workdir, "smoke.tif")
-    write_tiff(src, img)
-    conv = CudaConverter()
-    t0 = time.perf_counter()
-    conv.convert("smoke-warmup", src, Conversion.LOSSLESS)
-    torch.cuda.synchronize()
-    say(f"main: warm-up lossless convert {time.perf_counter() - t0:.2f} s")
-
-    real = cxd.fused_t1
-    ft.KERNEL.launches = 0
-    totals = {"launches": 0}
-    for conversion in (Conversion.LOSSLESS, Conversion.LOSSY):
-        timer = LaunchTimer(real)
-        cxd.fused_t1 = timer
-        torch.cuda.reset_peak_memory_stats()
-        before = ft.KERNEL.launches
-        try:
-            t0 = time.perf_counter()
-            out = conv.convert(f"smoke-{conversion.value}", src, conversion)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            cxd.fused_t1 = real
-        launches = ft.KERNEL.launches - before
-        kms = timer.kernel_ms()
-        st = conv.last_stats
-        with open(out, "rb") as fh:
-            data = fh.read()
-        verdict = check_jp2(data, img, conversion == Conversion.LOSSLESS)
-        say(f"main {conversion.value} {w}x{h}: wall {wall:.3f} s, "
-            f"{h * w / wall / 1e6:.3f} MPix/s, {len(data)} B "
-            f"({len(data) * 8 / (h * w):.3f} bpp); fused_t1 launches "
-            f"{launches}, kernel {kms:.3f} ms total, "
-            f"{kms / max(launches, 1):.3f} ms/launch, bound "
-            f"{timer.bound_ms():.4f} ms; blocks {st['blocks']}, symbols "
-            f"{st['symbols']}, bytes {st['bytes']}; peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
-            f"{verdict}")
-        if launches <= 0 or len(timer.launches) != launches:
-            fail(f"{conversion.value}: the main path launched fused_t1 "
-                 f"{launches} times")
-        totals["launches"] += launches
-    if ft.KERNEL.launches != totals["launches"]:
-        fail("fused_t1 launch count does not match the main path's")
-    totals["lossy_groups"] = phase_breakdown(conv, src)
-    return totals
+RUN_LAUNCHES: dict = {}     # launches before the last reset, per library
 
 
-def phase_breakdown(conv, src: str):
-    """One more convert of each kind with every stage synchronized and
-    timed: where an encode's wall time goes. Returns the lossy convert's
-    largest launch group at each plane budget, {L: (frac, kernel
-    args)}."""
-    from bucketeer_tpu_torch.codec import cxd, encoder, frontend, rate, tiff
+def reset_counts() -> None:
+    """Every kernel's launch count to 0, and the capability probe to
+    unprobed, so a path's run shows each launch it makes."""
+    from bucketeer_tpu_torch.kernels import support
+
+    for name, lib in libraries().items():
+        RUN_LAUNCHES[name] = RUN_LAUNCHES.get(name, 0) + lib.launches
+        lib.launches = 0
+    support.reset_probe()
+
+
+def read_counts() -> dict:
+    return {name: lib.launches for name, lib in libraries().items()
+            if lib.cuda}
+
+
+def _fused_volume(L, args, out):
+    return (L, args[4], args[5], out[2], out[5])
+
+
+def _scan_volume(L, args, out):
+    return (L, args[4], args[5], out[4])
+
+
+def main_path(conv, src: str, img, split: bool) -> dict:
+    """Lossless then lossy through one converter, counts set to 0 just
+    before and read just after."""
+    from bucketeer_tpu_torch.codec import cxd, t1_batch
     from bucketeer_tpu_torch.converters import Conversion
 
-    stages = [("tiff read", tiff, "read_image"),
-              ("mct choice", encoder, "_mct_helps"),
-              ("front-end", frontend, "dispatch_frontend"),
-              ("floor estimate", rate, "estimate_floors"),
-              ("tier-1 (kernel)", cxd, "fused_t1"),
-              ("tier-1 (fetch)", cxd, "_fetch_block_rows"),
-              ("tier-1 (assembly)", cxd, "assemble_mq_blocks"),
-              ("distortion rescale", encoder, "_correct_distortions"),
-              ("pcrd + tier-2", encoder, "_finish")]
-    real = cxd.fused_t1
+    h, w = img.shape[:2]
+    path = "split" if split else "fused"
+    kernel = "cxd_scan" if split else "fused_t1"
+    real = getattr(cxd, kernel)
+    files = {}
+    reset_counts()
     for conversion in (Conversion.LOSSLESS, Conversion.LOSSY):
-        capture = cxd.fused_t1 = GroupCapture(real)
+        timer = LaunchTimer(real, _scan_volume if split else _fused_volume)
+        setattr(cxd, kernel, timer)
+        host = StageTimer([("pass tables", cxd, "pass_tables"),
+                           ("row fetch", cxd, "_fetch_block_rows"),
+                           ("host replay", t1_batch, "encode_cxd")],
+                          sync=False)
+        fetched = [0]
+        real_fetch = cxd._fetch_block_rows
+
+        def counting_fetch(*a):
+            out = real_fetch(*a)
+            fetched[0] += out[0].nbytes
+            return out
+
+        cxd._fetch_block_rows = counting_fetch
+        torch.cuda.reset_peak_memory_stats()
         try:
-            with StageTimer(stages) as st:
+            with host:
                 t0 = time.perf_counter()
-                conv.convert(f"smoke-split-{conversion.value}", src,
+                out = conv.convert(f"smoke-{path}-{conversion.value}", src,
+                                   conversion)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            setattr(cxd, kernel, real)
+            cxd._fetch_block_rows = real_fetch
+        kms = timer.kernel_ms()
+        n = len(timer.launches)
+        bounds = timer.bounds(scan_bound if split else fused_bound)
+        big = max(range(n), key=lambda i: timer.launches[i][2][1].shape[0])
+        st = conv.last_stats
+        with open(out, "rb") as fh:
+            files[conversion] = fh.read()
+        data = files[conversion]
+        verdict = ("" if split else "; " + check_jp2(
+            data, img, conversion == Conversion.LOSSLESS))
+        line = (f"main {path} {conversion.value} {w}x{h}: wall {wall:.3f} s, "
+                f"{h * w / wall / 1e6:.3f} MPix/s, {len(data)} B "
+                f"({len(data) * 8 / (h * w):.3f} bpp); {kernel} launches "
+                f"{n}, kernel {kms:.3f} ms total, {kms / max(n, 1):.3f} "
+                f"ms/launch (CUDA events around each launch: a host delay "
+                f"between them counts), bound {sum(b[0] for b in bounds):.4f} ms "
+                f"(largest group: {timer.launches[big][2][1].shape[0]} "
+                f"blocks, bound {bounds[big][0]:.6f} ms by {bounds[big][1]}"
+                f", {bounds[big][2]} B); blocks {st['blocks']}, symbols "
+                f"{st['symbols']}, bytes {st['bytes']}; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        if split:
+            line += (f"; packed symbol bytes fetched {fetched[0]}; host: "
+                     f"{host.line()}, replay threads "
+                     f"{t1_batch.default_threads()}")
+        say(line + verdict)
+        if n <= 0:
+            fail(f"{path} {conversion.value}: the path launched {kernel} "
+                 "no time")
+    counts = read_counts()
+    say(f"main {path}: launches in this path's run {counts}")
+    want = {"fused_t1": not split, "cxd_scan": split, "mq_scan": False,
+            "probe": True}
+    for name, launched in want.items():
+        if (counts[name] > 0) != launched:
+            fail(f"main {path}: {name} launched {counts[name]} times")
+    return {"files": files, "counts": counts}
+
+
+def phase_main(img, workdir) -> dict:
+    from bucketeer_tpu_torch.converters import Conversion, CudaConverter
+
+    src = os.path.join(workdir, "smoke.tif")
+    write_tiff(src, img)
+    convs = {"fused": CudaConverter(),
+             "split": CudaConverter(device_cxd=True, device_mq=False)}
+    runs = {}
+    for path, conv in convs.items():
+        t0 = time.perf_counter()
+        conv.convert(f"smoke-{path}-warmup", src, Conversion.LOSSLESS)
+        torch.cuda.synchronize()
+        say(f"main {path}: warm-up lossless convert "
+            f"{time.perf_counter() - t0:.2f} s")
+        runs[path] = main_path(conv, src, img, path == "split")
+    for conversion in (Conversion.LOSSLESS, Conversion.LOSSY):
+        same = runs["split"]["files"][conversion] == \
+            runs["fused"]["files"][conversion]
+        say(f"main {conversion.value}: split file identical to the fused "
+            f"file: {same}")
+        if not same:
+            fail(f"{conversion.value}: the split's file differs from the "
+                 "fused path's")
+    groups = phase_breakdown(convs["fused"], src, split=False)
+    phase_breakdown(convs["split"], src, split=True)
+    return {"counts": {p: r["counts"] for p, r in runs.items()},
+            "lossy_groups": groups}
+
+
+def phase_breakdown(conv, src: str, split: bool):
+    """One more convert of each kind with every stage synchronized and
+    timed: where an encode's wall time goes. The fused run returns the
+    lossy convert's largest launch group at each plane budget, {L:
+    (frac, kernel args)}. In the split the host replay runs on its
+    worker beside the main thread, so it is listed apart and left out of
+    "other"."""
+    from bucketeer_tpu_torch.codec import cxd, encoder, frontend, rate
+    from bucketeer_tpu_torch.codec import t1_batch, tiff
+    from bucketeer_tpu_torch.converters import Conversion
+
+    head = [("tiff read", tiff, "read_image"),
+            ("mct choice", encoder, "_mct_helps"),
+            ("front-end", frontend, "dispatch_frontend"),
+            ("floor estimate", rate, "estimate_floors")]
+    tail = [("pcrd + tier-2", encoder, "_finish")]
+    if split:
+        stages = head + [("tier-1 (cxd_scan kernel)", cxd, "cxd_scan"),
+                         ("tier-1 (pack6)", cxd, "pack6"),
+                         ("tier-1 (pass tables)", cxd, "pass_tables"),
+                         ("tier-1 (fetch)", cxd, "_fetch_block_rows")] + tail
+        worker = [("tier-1 (host replay)", t1_batch, "encode_cxd"),
+                  ("distortion rescale", encoder, "_correct_distortions")]
+    else:
+        stages = head + [("tier-1 (kernel)", cxd, "fused_t1"),
+                         ("tier-1 (fetch)", cxd, "_fetch_block_rows"),
+                         ("tier-1 (assembly)", cxd, "assemble_mq_blocks"),
+                         ("distortion rescale", encoder,
+                          "_correct_distortions")] + tail
+        worker = []
+    real = cxd.fused_t1
+    capture = None
+    for conversion in (Conversion.LOSSLESS, Conversion.LOSSY):
+        if not split:
+            capture = cxd.fused_t1 = GroupCapture(real)
+        try:
+            with StageTimer(stages) as st, StageTimer(worker) as wt:
+                t0 = time.perf_counter()
+                conv.convert(f"smoke-breakdown-{conversion.value}", src,
                              conversion)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
         finally:
             cxd.fused_t1 = real
-        parts = ", ".join(f"{k} {v:.3f} ({st.calls[k]}x)"
-                          for k, v in st.seconds.items())
         rest = wall - sum(st.seconds.values())
-        say(f"breakdown {conversion.value} (synchronized): wall "
-            f"{wall:.3f} s = {parts}, other {rest:.3f} s")
+        say(f"breakdown {'split' if split else 'fused'} {conversion.value} "
+            f"(synchronized): wall {wall:.3f} s = {st.line()}, other "
+            f"{rest:.3f} s"
+            + (f"; on the replay worker: {wt.line()}" if worker else ""))
+    if split:
+        return None
     if not {8, 16} <= set(capture.groups):
         fail(f"the lossy convert launched groups at L in "
              f"{sorted(capture.groups)}, not at both 8 and 16")
@@ -542,28 +849,54 @@ def main() -> None:
     phase_build()
     rng = np.random.default_rng(args.seed)
     img = photo(rng, SIZE, SIZE)
-    k = phase_kernel_vs_plain(rng, img)
+    worst, timing = phase_kernel_vs_plain(rng, img)
+    probe = phase_probe()
     phase_parity(rng)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
     os.environ["BUCKETEER_TMPDIR"] = workdir
     try:
-        totals = phase_main(img, workdir)
+        main_res = phase_main(img, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    worst = k["max_abs_err"]
     for L in (8, 16):
-        frac, group = totals["lossy_groups"][L]
-        lossy = check_image_group("lossy, rate-estimator floors", L, frac,
-                                  group)
-        worst = max(worst, lossy["max_abs_err"])
+        frac, group = main_res["lossy_groups"][L]
+        label = "image group (lossy, rate-estimator floors)"
+        res = check_group(label, L, frac, group, "cuda")
+        for k, v in res["errs"].items():
+            worst[k] = max(worst[k], v)
+        worst["fused_t1"] = max(worst["fused_t1"],
+                                check_chain("lossy", L, res))
     say(f"total {time.perf_counter() - t_start:.1f} s")
+
+    counts = main_res["counts"]
+    launches = {"fused_t1": counts["fused"]["fused_t1"],
+                "cxd_scan": counts["split"]["cxd_scan"],
+                "probe": counts["fused"]["probe"] + counts["split"]["probe"],
+                # No encode path runs mq_scan (the JAX package has no call
+                # site for mq_pallas either): its count is the whole run's,
+                # every launch a check against plain or fused_t1.
+                "mq_scan": (RUN_LAUNCHES.get("mq_scan", 0)
+                            + libraries()["mq_scan"].launches)}
+    paths = {"fused_t1": "fused main path", "cxd_scan": "split main path",
+             "probe": "first launch of each main path",
+             "mq_scan": "none: the oracle surface; launches of the whole "
+                        "run's kernel checks"}
+    source = {"fused_t1": "fused_t1.cu", "cxd_scan": "cxd_scan.cu",
+              "mq_scan": "mq_scan.cu", "probe": "probe.cu"}
+    replaces = {"fused_t1": "fused_t1.py:72", "cxd_scan": "cxd_scan.py:121",
+                "mq_scan": "mq_scan.py:74", "probe": "support.py:47"}
+    timing["probe"] = probe
+    worst["probe"] = probe["max_abs_err"]
     say(json.dumps({"kernels": [{
-        "name": "fused_t1", "route": "cuda", "source": FUSED_T1_SRC,
-        "replaces": FUSED_T1_TPU, "launches": totals["launches"],
-        "max_abs_err": worst, "ms": k["ms"],
-        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None,
-        "matches_plain": worst == 0}]}))
+        "name": name, "route": "cuda", "source": CSRC + source[name],
+        "replaces": TPU + replaces[name], "launches": launches[name],
+        "max_abs_err": worst[name], "ms": timing[name]["ms"],
+        "plain_ms": timing[name]["plain_ms"],
+        "bound_ms": timing[name]["bound_ms"],
+        "bound_by": timing[name]["bound_by"],
+        "library_ms": timing[name].get("library_ms"),
+        "matches_plain": worst[name] == 0, "path": paths[name]}
+        for name in ("fused_t1", "cxd_scan", "mq_scan", "probe")]}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -110,12 +110,15 @@ def test_cuda_converter_on_cpu_matches_jax(tmp_path, monkeypatch):
         assert fh.read() == ref
 
 
-@pytest.mark.parametrize("kw", [{"device_mq": False}, {"device_cxd": True},
+@pytest.mark.parametrize("kw", [{"device_mq": False},
+                                {"device_mq": False, "device_cxd": False},
                                 {"tile_size": 96, "levels": 2}])
 def test_unported_cases_raise(kw):
     """Cases outside this package raise instead of taking another path:
-    the host Tier-1 modes, and a tile grid whose sub-bands straddle the
-    64-grid (the JAX package codes it with the host Tier-1)."""
+    the host Tier-1 (device_mq=False without device_cxd), and a tile
+    grid whose sub-bands straddle the 64-grid (the JAX package codes it
+    with the host Tier-1). The CX/D split is tested in
+    tests/test_torch_cxd_split.py."""
     img = _photo(7, 192, 96)
     with pytest.raises(NotImplementedError):
         t_encoder.encode_jp2(img, 8, t_encoder.EncodeParams(**kw),

@@ -28,8 +28,13 @@ def test_port_imports_no_jax_and_no_jax_package():
                          env={**os.environ, "PYTHONPATH": REPO})
     res = json.loads(out.stdout.strip().splitlines()[-1])
     # Every module of the package was imported, the kernel module too.
-    assert "bucketeer_tpu_torch.kernels.fused_t1" in res["modules"]
-    assert "bucketeer_tpu_torch.converters.cuda" in res["modules"]
+    assert {"bucketeer_tpu_torch.kernels.fused_t1",
+            "bucketeer_tpu_torch.kernels.cxd_scan",
+            "bucketeer_tpu_torch.kernels.mq_scan",
+            "bucketeer_tpu_torch.kernels.support",
+            "bucketeer_tpu_torch.kernels.build",
+            "bucketeer_tpu_torch.codec.t1_batch",
+            "bucketeer_tpu_torch.converters.cuda"} <= set(res["modules"])
     bad = [m for m in res["new"]
            if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "bucketeer_tpu" or m.startswith("bucketeer_tpu.")]
@@ -50,6 +55,10 @@ def test_port_sources_name_no_jax_import():
     paths = _port_sources()
     rel = {os.path.relpath(p, REPO) for p in paths}
     assert {"bucketeer_tpu_torch/kernels/fused_t1.py",
+            "bucketeer_tpu_torch/kernels/cxd_scan.py",
+            "bucketeer_tpu_torch/kernels/mq_scan.py",
+            "bucketeer_tpu_torch/kernels/support.py",
+            "bucketeer_tpu_torch/codec/t1_batch.py",
             "bucketeer_tpu_torch/codec/encoder.py",
             "chip_smoke.py"} <= rel
     offenders = []

@@ -2,7 +2,9 @@
 runs for CPU tensors) against the JAX package's jnp fused Tier-1: the
 shared CX/D scan (``cxd._scan_impl``) chained into the batched MQ run
 (``cxd._mq_run``), as tests/test_mq_device.py composes it. All seven
-outputs are compared exactly — distortion pairs bit for bit."""
+outputs are compared exactly — distortion pairs bit for bit. The plain
+CX/D scan alone (kernels/cxd_scan.py) is held against ``cxd._scan_impl``
+and the port's 6-bit packing against ``cxd.pack6`` the same way."""
 from functools import lru_cache
 
 import jax
@@ -12,6 +14,8 @@ import pytest
 import torch
 
 from bucketeer_tpu.codec import cxd as j_cxd
+from bucketeer_tpu_torch.codec import cxd as t_cxd
+from bucketeer_tpu_torch.kernels import cxd_scan as t_scan
 from bucketeer_tpu_torch.kernels import fused_t1 as t_fused
 
 
@@ -83,6 +87,39 @@ def check_plain_matches_jax(L, frac):
                                       ref[k].view(np.int32))
     assert ref[5][3] == 0 and ref[5][5] == 0 and ref[2][5] == 0
     assert ref[5][0] > 1000          # the dense block really coded
+
+
+def check_cxd_scan_matches_jax(L, frac):
+    """cxd_scan on CPU tensors (its plain version) against the JAX jnp
+    scan: symbols over each block's [0, cur), counts, cursors, and the
+    distortion pairs bit for bit; then the port's pack6 of the JAX
+    symbol buffer against the JAX package's pack6."""
+    blocks, nbps, floors, cls, hs, ws = _blocks(L * 10 + frac, L, frac)
+    ref = [np.asarray(x) for x in _jax_scan(L)(
+        jnp.int32(frac), jnp.asarray(blocks), jnp.asarray(nbps),
+        jnp.asarray(floors), jnp.asarray(cls), jnp.asarray(hs),
+        jnp.asarray(ws))]
+    got = [t.numpy() for t in t_scan.cxd_scan(
+        L, frac, *(torch.as_tensor(a) for a in
+                   (blocks, nbps, floors, cls, hs, ws)))]
+    assert got[0].shape == ref[0].shape == (len(nbps), t_scan.max_syms(L))
+    np.testing.assert_array_equal(got[4], ref[4])           # cursors
+    for b, c in enumerate(ref[4]):
+        np.testing.assert_array_equal(got[0][b, :c], ref[0][b, :c],
+                                      err_msg=f"symbols of block {b}")
+    np.testing.assert_array_equal(got[1], ref[1])           # counts
+    for k in (2, 3):                                        # dh, dl
+        np.testing.assert_array_equal(got[k].view(np.int32),
+                                      ref[k].view(np.int32))
+    assert ref[4][0] > 1000 and ref[4][3] == 0 and ref[4][5] == 0
+    packed = t_cxd.pack6(torch.as_tensor(ref[0].copy())).numpy()
+    np.testing.assert_array_equal(packed, np.asarray(j_cxd.pack6(ref[0])))
+
+
+@pytest.mark.parametrize("frac", [0, 7])
+def test_plain_cxd_scan_matches_jax(frac):
+    """L=2; tests/test_torch_t1_deep.py runs L=5."""
+    check_cxd_scan_matches_jax(2, frac)
 
 
 @pytest.mark.parametrize("frac", [0, 7])
