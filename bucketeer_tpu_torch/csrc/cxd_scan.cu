@@ -1,5 +1,5 @@
-// EBCOT CX/D context-modeling scan for Hopper (sm_90a), one CUDA thread
-// per 64x64 code-block: the ordered ctx | d << 5 symbols each block's MQ
+// EBCOT CX/D context-modeling scan for Hopper (sm_90a), one warp per
+// 64x64 code-block: the ordered ctx | d << 5 symbols each block's MQ
 // coder would consume, the symbol cursor and the exact distortion pair
 // at every pass end.
 //
@@ -9,25 +9,30 @@
 // (bucketeer_tpu_torch/kernels/cxd_scan.py, cxd_scan_plain).
 //
 // What bounds it on this card: the serial chain of one block's scan, as
-// for fused_t1.cu (each decision's context depends on the decisions
-// before it in coding order), plus the symbol stores. Its bytes bound is
-// the coefficients in and one byte per symbol out over HBM bandwidth,
-// three orders of magnitude below the chain.
+// for fused_t1.cu, without the MQ coder's share. Its bytes bound (the
+// extents in, one byte per symbol out, over HBM bandwidth) is 0.0175 ms
+// at the main path's L=8 group; the longest block's chain alone is
+// ~110 times that and a launch ~180 times (PERF.md).
 //
 // What the design does about it:
-// - The scan is fused_t1's (run_pass of t1_common.cuh, bit-packed state
-//   in shared memory, only the block's extent and realized planes), with
-//   the SymbolSink in place of the MQ coder.
-// - The symbol buffer, 53-200 KB per block, is far too large for shared
-//   memory, so symbols go to the block's row of global memory,
-//   buf[b, cur++]. The sink gathers four symbols into one 32-bit store,
-//   a quarter of the store instructions of byte stores; the rows of one
-//   warp's threads lie max_syms bytes apart, so stores do not coalesce
-//   and the L2 cache merges each thread's sequential words.
-// - Every counts, dh and dl entry is written, including passes that do
-//   not exist (off 0 sigprop/magref: 0; offsets past the block's depth:
-//   the final cursor and a zero pair), so the wrapper allocates with
-//   torch.empty. Symbol bytes past a block's cursor carry no meaning.
+// - The scan is fused_t1's (scan_block of t1_common.cuh): one warp per
+//   code-block, the block loaded once into bit planes in shared memory,
+//   lane 0 coding from registers and shared memory only, the helper
+//   lanes preparing stripes, forming refinement symbols and summing
+//   distortion. Shared memory per block: scan_words(L) words, a 1 KB
+//   symbol ring and the per-pass results, 8.6 KB at L=8 and 13.0 KB at
+//   L=16 beside 0.8 KB of tables (22 and 15 resident blocks per SM;
+//   cxd_scan_occupancy reports it).
+// - Symbols go to the ring in shared memory (one byte store on the
+//   chain); at every stripe end the warp stores the ring's full 128-byte
+//   segments to the block's row, one word per lane, so each store
+//   instruction writes one whole line. The symbol buffer (53-200 KB per
+//   block) is far too large for shared memory itself.
+// - Every counts, dh and dl entry is written once at the block's end,
+//   including passes that do not exist (off 0 sigprop/magref: 0;
+//   offsets past the block's depth: the final cursor and a zero pair),
+//   so the wrapper allocates with torch.empty. Symbol bytes past a
+//   block's cursor carry no meaning.
 //
 // Plain C interface, bound with ctypes; the launch goes on the caller's
 // stream and allocates nothing.
@@ -38,9 +43,13 @@ namespace {
 
 using namespace t1;
 
-constexpr size_t SMEM_BYTES = WORDS * sizeof(uint64_t);
+// Dynamic shared memory per thread block at plane budget L: scan state,
+// the symbol ring, the results.
+size_t smem_bytes(int L) {
+    return scan_words(L) * sizeof(uint64_t) + RING + results_bytes(L);
+}
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(WARP)
 cxd_scan_kernel(const int32_t* __restrict__ blocks,
                 const int32_t* __restrict__ nbps,
                 const int32_t* __restrict__ floors,
@@ -50,59 +59,37 @@ cxd_scan_kernel(const int32_t* __restrict__ blocks,
                 const int32_t* __restrict__ zc_g,
                 const int32_t* __restrict__ sc_ctx,
                 const int32_t* __restrict__ sc_xor,
-                int n, int L, int frac, int msym,
+                int L, int frac, int msym,
                 uint8_t* __restrict__ buf, int32_t* __restrict__ counts,
                 float* __restrict__ dh, float* __restrict__ dl,
                 int32_t* __restrict__ cur) {
-    __shared__ int zc[135];
-    __shared__ int scx[25];
+    __shared__ uint8_t zlut[3 * 256];
+    __shared__ uint8_t scx[32];
     extern __shared__ uint64_t smem[];
 
-    load_scan_tables(zc, scx, zc_g, sc_ctx, sc_xor);
-    __syncthreads();
+    const int lane = threadIdx.x;
+    const size_t b = blockIdx.x;
+    load_scan_tables(zlut, scx, zc_g, sc_ctx, sc_xor, lane);
 
-    const int t = threadIdx.x;
-    const int b = blockIdx.x * NT + t;
-    if (b >= n) return;
+    const int nbp = nbps[b], floor = floors[b];
+    const int eff = max(nbp - floor, 0);
+    const Scan S = scan_layout(smem, L, hs[b], ws[b], clss[b], zlut, scx);
+    uint8_t* ring = reinterpret_cast<uint8_t*>(smem + scan_words(L));
+    const Results R = results_layout(ring + RING, L);
+    results_clear(R, L, lane);
+    __syncwarp();
 
-    Block B;
-    B.coef = blocks + static_cast<size_t>(b) * CBLK * CBLK;
-    B.frac = frac;
-    B.floor = floors[b];
-    B.h = hs[b];
-    B.w = ws[b];
-    B.cls = clss[b];
-    block_state(B, smem, t);
-    const int nbp = nbps[b];
-    const int eff = max(nbp - B.floor, 0);
-    for (int i = 0; i < L * 3; ++i) {
-        const size_t at = static_cast<size_t>(b) * L * 3 + i;
-        counts[at] = 0;
-        dh[at] = 0.0f;
-        dl[at] = 0.0f;
-    }
-
-    SymbolSink sink{buf + static_cast<size_t>(b) * msym, msym, 0, 0u};
+    RingSink sink{ring, buf + b * msym, msym, 0, 0};
     if (eff > 0) {
-        block_reset(B);
-        for (int off = 0; off < eff; ++off) {
-            const int p = nbp - 1 - off;
-            for (int kind = off == 0 ? 2 : 0; kind < 3; ++kind) {
-                long long s = run_pass(B, sink, zc, scx, kind, p);
-                size_t at = (static_cast<size_t>(b) * L + off) * 3 + kind;
-                counts[at] = sink.cur;
-                dist_pair(s, dh + at, dl + at);
-            }
-            for (int x = 0; x < CBLK; ++x) B.pi[x * NT] = 0;
-        }
-        sink.finish();
+        scan_block(S, sink, R, blocks + b * CBLK * CBLK, frac, floor, nbp,
+                   eff, lane);
+        sink.warp_flush(lane, true);
     }
     // Plane offsets past this block's depth are masked dead passes: the
     // cursor stands at its final value.
-    for (int off = eff; off < L; ++off)
-        for (int kind = 0; kind < 3; ++kind)
-            counts[(static_cast<size_t>(b) * L + off) * 3 + kind] = sink.cur;
-    cur[b] = sink.cur;
+    results_store(R, L, eff, sink.cur, lane, counts + b * L * 3,
+                  dh + b * L * 3, dl + b * L * 3);
+    if (lane == 0) cur[b] = sink.cur;
 }
 
 }  // namespace
@@ -114,15 +101,14 @@ extern "C" int cxd_scan_launch(
         int n, int L, int frac, int msym,
         void* buf, void* counts, void* dh, void* dl, void* cur,
         void* stream) {
+    const size_t smem = smem_bytes(L);
     cudaError_t err = cudaFuncSetAttribute(
         cxd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(SMEM_BYTES));
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     if (n <= 0) return 0;
     if (msym % 4) return static_cast<int>(cudaErrorInvalidValue);
-    dim3 grid((n + NT - 1) / NT);
-    cxd_scan_kernel<<<grid, NT, SMEM_BYTES,
-                      static_cast<cudaStream_t>(stream)>>>(
+    cxd_scan_kernel<<<n, WARP, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(blocks),
         static_cast<const int32_t*>(nbps),
         static_cast<const int32_t*>(floors),
@@ -132,9 +118,21 @@ extern "C" int cxd_scan_launch(
         static_cast<const int32_t*>(zc),
         static_cast<const int32_t*>(sc_ctx),
         static_cast<const int32_t*>(sc_xor),
-        n, L, frac, msym,
+        L, frac, msym,
         static_cast<uint8_t*>(buf), static_cast<int32_t*>(counts),
         static_cast<float*>(dh), static_cast<float*>(dl),
         static_cast<int32_t*>(cur));
     return static_cast<int>(cudaGetLastError());
+}
+
+// Resident thread blocks (= code-blocks, one warp each) per SM at plane
+// budget L.
+extern "C" int cxd_scan_occupancy(int L, int* blocks_per_sm) {
+    const size_t smem = smem_bytes(L);
+    cudaError_t err = cudaFuncSetAttribute(
+        cxd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, cxd_scan_kernel, WARP, smem));
 }

@@ -1,36 +1,51 @@
 // Fused EBCOT Tier-1 for Hopper (sm_90a): CX/D context modeling and the
-// MQ arithmetic coder in one kernel, one CUDA thread per 64x64
-// code-block.
+// MQ arithmetic coder in one kernel, two warps per 64x64 code-block.
 //
 // Replaces the TPU kernel fused_pallas
 // (bucketeer_tpu/codec/pallas/fused_t1.py:72, body _kernel at :47) and
 // computes the same outputs as its plain PyTorch version
 // (bucketeer_tpu_torch/kernels/fused_t1.py, fused_t1_plain).
 //
-// What bounds it on this card: neither bytes nor arithmetic rate. A
-// code-block's coding is one serial dependency chain: each decision's
-// context depends on significance set by the decisions before it in
-// coding order, and each MQ step depends on the coder registers of the
-// step before. The kernel's time is the longest chain in a launch times
-// the latency of one step, divided over the blocks that run at once.
+// What bounds it on this card: neither bytes nor arithmetic rate but the
+// serial chains of one code-block: each decision's context depends on
+// significance set by the decisions before it in coding order, and each
+// MQ step on the coder registers of the step before. At the main path's
+// largest launch group (L=8, 1,752 blocks) the bytes bound is 0.0088 ms;
+// the longest block's chain alone is ~320 times that and a launch ~660
+// times (PERF.md), so a launch can take no less than that chain;
+// the design makes the chain short and has every block start at once.
 //
-// What the design does about it:
-// - No symbol buffer: each decision is MQ-coded as the scan produces it
-//   (run_pass with the MqSink of t1_common.cuh; the TPU kernel held
-//   ~196 KB of symbols per block in VMEM, more than one H100 block's
-//   shared memory beside anything else). Bytes go straight into the
-//   block's output row range, dummy pre-byte at 0.
-// - Scan state is bit-packed in shared memory, 2 KB per code-block,
-//   and the 19 MQ context states sit beside it (t1_common.cuh).
-// - Each thread loops only over its block's own extent and its
-//   realized planes (nbp - floor); a dead block does nothing.
-// - Distortion: 4 x distortion of each pass is summed exactly in 64-bit
-//   integers from the float32-rounded factors and emitted as the
-//   canonical float32 pair (fl(S), S - fl(S)); no float arithmetic is
-//   left for the compiler to contract into FMAs.
+// What the design does about it (t1_common.cuh has the scan's details):
+// - One thread block of two warps per code-block. Warp 0 runs the scan of
+//   t1_common.cuh (scan_block): the block loaded once, coalesced, into
+//   bit planes in shared memory; lane 0 coding sigprop and cleanup from
+//   registers and shared memory only (no global load on the chain); the
+//   other lanes preparing stripes, forming refinement symbols and summing
+//   the exact distortion.
+// - Warp 1's lane 0 is the MQ coder. The scan does not depend on the
+//   coder, so the two chains run side by side: warp 0 writes symbols to
+//   a 2 KB ring in shared memory and publishes its count at every stripe
+//   end; warp 1 codes them as they arrive and takes each pass's byte
+//   count where that pass's symbols end. A launch costs about the longer
+//   of the two chains instead of their sum (with the coder inline on the
+//   scan's lane 0 the L=8 group took 8.9 ms, against 6.6 ms split).
+// - A context state word carries its packed Qe entry, so a decision
+//   costs one dependent shared load; renormalization is one leading-zero
+//   count. Coded bytes go straight into the block's output row range,
+//   dummy pre-byte at 0. No symbol buffer in global memory exists (the
+//   TPU kernel held ~196 KB of symbols per block in VMEM).
+// - Shared memory per block: scan_words(L) words of scan state and
+//   planes, the ring, the context states and the per-pass results, 9.9
+//   KB at L=8 and 14.5 KB at L=16 beside 1 KB of tables, so an SM holds
+//   18 (L=8) or 14 (L=16) blocks and the L=8 group runs in one wave on
+//   132 SMs. fused_t1_occupancy reports the resident thread blocks.
+// - Every output entry is written exactly once at the block's end,
+//   coalesced, so the wrapper allocates them uninitialised.
 //
 // Plain C interface, bound with ctypes; the launch goes on the caller's
 // stream and allocates nothing.
+
+#include <climits>
 
 #include "t1_common.cuh"
 
@@ -38,11 +53,114 @@ namespace {
 
 using namespace t1;
 
-// Dynamic shared memory per thread block: scan state, then the MQ
-// context states.
-constexpr size_t SMEM_BYTES = WORDS * sizeof(uint64_t) + NCTX * NT;
+constexpr int MQR = 2048;           // symbol ring between the two warps
+constexpr int STRIPE_MAX = 640;     // a stripe's most symbols
 
-__global__ void __launch_bounds__(NT)
+// The two warps' shared counters. The scan warp publishes symbols and
+// pass ends; the coder warp publishes how far it has consumed.
+struct Handoff {
+    volatile int produced;   // symbols in the ring so far
+    volatile int consumed;   // symbols coded so far
+    volatile int npe;        // pass ends recorded
+    volatile int done;       // the scan has ended
+    int final_pos, len, nsym, curb;   // the coder's results
+};
+
+// The scan warp's sink: symbols into the ring, pass ends into pe_count /
+// pe_at (the pass's symbol count and its off * 3 + kind, in order).
+struct FeedSink {
+    uint8_t* ring;
+    Handoff* ho;
+    int* pe_count;
+    int* pe_at;
+    int cur;          // symbols so far (lane 0's; every lane's after a flush)
+    int npe;          // pass ends recorded (lane 0's)
+    __device__ __forceinline__ void code(int cx, int bit) {
+        ring[cur & (MQR - 1)] = static_cast<uint8_t>(cx | (bit << 5));
+        cur += 1;
+    }
+    __device__ __forceinline__ void end_pass(const Results&, int at,
+                                             int lane) {
+        if (lane == 0) {
+            pe_count[npe] = cur;
+            pe_at[npe] = at;
+            npe += 1;
+            __threadfence_block();
+            ho->npe = npe;
+        }
+    }
+    __device__ __forceinline__ void append_warp(const LaneSyms& ls, int total,
+                                                int) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+            for (int q = 0; q < ls.cnt[j]; ++q)
+                ring[(cur + ls.off[j] + q) & (MQR - 1)] =
+                    static_cast<uint8_t>(ls.syms[j] >> (8 * q));
+        cur += total;
+    }
+    // All lanes of the scan warp at a stripe end: publish the stripe's
+    // symbols, then wait until the ring has room for the next stripe.
+    __device__ __forceinline__ void warp_flush(int lane, bool) {
+        __threadfence_block();
+        cur = __shfl_sync(FULL, cur, 0);
+        if (lane == 0) {
+            ho->produced = cur;
+            while (cur - ho->consumed > MQR - STRIPE_MAX) {
+            }
+        }
+        __syncwarp();
+    }
+};
+
+// The coder warp's lane 0: MQ-code the ring's symbols as they arrive, and
+// at each pass end the byte count so far.
+__device__ void consume(Handoff* ho, const uint8_t* ring,
+                        const int* pe_count, const int* pe_at,
+                        const Results& R, Coder& m, const uint32_t* qe) {
+    int consumed = 0, pe = 0, n_pe = 0;
+    int next_end = INT_MAX;       // symbol count of the next pass end
+    while (true) {
+        const int fin = ho->done;
+        __threadfence_block();
+        const int prod = ho->produced;
+        __threadfence_block();
+        const int n_new = ho->npe;
+        __threadfence_block();
+        if (n_new > n_pe) {
+            n_pe = n_new;
+            if (next_end == INT_MAX) next_end = pe_count[pe];
+        }
+        while (true) {
+            while (next_end == consumed) {
+                R.snap[pe_at[pe]] = m.cur - 1;
+                pe += 1;
+                next_end = pe < n_pe ? pe_count[pe] : INT_MAX;
+            }
+            const int stop = min(prod, next_end);
+            if (consumed >= stop) break;
+            int sym = ring[consumed & (MQR - 1)];
+            while (consumed < stop) {
+                const int nxt = ring[(consumed + 1) & (MQR - 1)];
+                encode(m, qe, sym & 31, sym >> 5);
+                consumed += 1;
+                sym = nxt;
+                if ((consumed & 255) == 0) ho->consumed = consumed;
+            }
+            ho->consumed = consumed;
+        }
+        if (fin && consumed == prod && next_end == INT_MAX) break;
+    }
+}
+
+// Dynamic shared memory per thread block at plane budget L: scan state,
+// the context states (one word each, padded to 20), the ring, the
+// handoff, the pass-end lists and the results.
+size_t smem_bytes(int L) {
+    return scan_words(L) * sizeof(uint64_t) + 20 * sizeof(uint32_t) + MQR
+        + sizeof(Handoff) + 2 * 3 * L * sizeof(int) + results_bytes(L);
+}
+
+__global__ void __launch_bounds__(2 * WARP)
 fused_t1_kernel(const int32_t* __restrict__ blocks,
                 const int32_t* __restrict__ nbps,
                 const int32_t* __restrict__ floors,
@@ -53,75 +171,77 @@ fused_t1_kernel(const int32_t* __restrict__ blocks,
                 const int32_t* __restrict__ sc_ctx,
                 const int32_t* __restrict__ sc_xor,
                 const int32_t* __restrict__ qe_g,
-                int n, int L, int frac, int cap,
+                int L, int frac, int cap,
                 uint8_t* __restrict__ rows, int32_t* __restrict__ snaps,
                 int32_t* __restrict__ dlen, float* __restrict__ dh,
                 float* __restrict__ dl, int32_t* __restrict__ cur,
                 int32_t* __restrict__ curb) {
-    __shared__ int zc[135];
-    __shared__ int scx[25];
-    __shared__ int qe[47 * 4];
+    __shared__ uint8_t zlut[3 * 256];
+    __shared__ uint8_t scx[32];
+    __shared__ uint32_t qe[NQE + 1];
     extern __shared__ uint64_t smem[];
 
-    load_scan_tables(zc, scx, zc_g, sc_ctx, sc_xor);
-    load_qe(qe, qe_g);
+    const int warp = threadIdx.x / WARP;
+    const int lane = threadIdx.x % WARP;
+    const size_t b = blockIdx.x;
+    if (warp == 0) {
+        load_scan_tables(zlut, scx, zc_g, sc_ctx, sc_xor, lane);
+        load_qe(qe, qe_g, lane, WARP);
+    }
+
+    const int nbp = nbps[b], floor = floors[b];
+    const int eff = max(nbp - floor, 0);
+    const Scan S = scan_layout(smem, L, hs[b], ws[b], clss[b], zlut, scx);
+    uint32_t* ctx = reinterpret_cast<uint32_t*>(smem + scan_words(L));
+    uint8_t* ring = reinterpret_cast<uint8_t*>(ctx + 20);
+    Handoff* ho = reinterpret_cast<Handoff*>(ring + MQR);
+    int* pe_count = reinterpret_cast<int*>(ho + 1);
+    int* pe_at = pe_count + 3 * L;
+    const Results R = results_layout(pe_at + 3 * L, L);
+    if (warp == 0) results_clear(R, L, lane);
+    if (threadIdx.x == 0) {
+        ho->produced = 0;
+        ho->consumed = 0;
+        ho->npe = 0;
+        ho->done = 0;
+        ho->final_pos = 0;
+        ho->len = 0;
+        ho->nsym = 0;
+        ho->curb = 1;
+    }
     __syncthreads();
 
-    const int t = threadIdx.x;
-    const int b = blockIdx.x * NT + t;
-    if (b >= n) return;
-
-    Block B;
-    B.coef = blocks + static_cast<size_t>(b) * CBLK * CBLK;
-    B.frac = frac;
-    B.floor = floors[b];
-    B.h = hs[b];
-    B.w = ws[b];
-    B.cls = clss[b];
-    block_state(B, smem, t);
-    const int nbp = nbps[b];
-    const int eff = max(nbp - B.floor, 0);
-    // Every output is written here, so the wrapper allocates them
-    // uninitialised: passes that do not exist read 0.
-    for (int i = 0; i < L * 3; ++i) {
-        const size_t at = static_cast<size_t>(b) * L * 3 + i;
-        snaps[at] = 0;
-        dh[at] = 0.0f;
-        dl[at] = 0.0f;
-    }
-
-    Coder m;
-    m.nsym = 0;
-    m.cur = 1;
-
     if (eff > 0) {
-        block_reset(B);
-        coder_init(m, rows + static_cast<size_t>(b) * cap, cap,
-                   reinterpret_cast<uint8_t*>(smem + WORDS) + t);
-        MqSink sink{m, qe};
-
-        for (int off = 0; off < eff; ++off) {
-            const int p = nbp - 1 - off;
-            for (int kind = off == 0 ? 2 : 0; kind < 3; ++kind) {
-                long long s = run_pass(B, sink, zc, scx, kind, p);
-                size_t at = (static_cast<size_t>(b) * L + off) * 3 + kind;
-                snaps[at] = m.cur - 1;
-                dist_pair(s, dh + at, dl + at);
+        if (warp == 0) {
+            FeedSink sink{ring, ho, pe_count, pe_at, 0, 0};
+            scan_block(S, sink, R, blocks + b * CBLK * CBLK, frac, floor, nbp,
+                       eff, lane);
+            if (lane == 0) {
+                __threadfence_block();
+                ho->done = 1;
             }
-            for (int x = 0; x < CBLK; ++x) B.pi[x * NT] = 0;
+        } else if (lane == 0) {
+            Coder m;
+            coder_init(m, rows + b * cap, cap, ctx, 1, qe);
+            consume(ho, ring, pe_count, pe_at, R, m, qe);
+            // Plane offsets past this block's depth are masked dead
+            // passes: their byte snapshot is the count before the flush.
+            ho->final_pos = m.cur - 1;
+            ho->len = flush(m);
+            ho->nsym = m.nsym;
+            ho->curb = m.cur;
         }
-        // Plane offsets past this block's depth are masked dead passes:
-        // their byte snapshot is the count before the flush.
-        for (int off = eff; off < L; ++off)
-            for (int kind = 0; kind < 3; ++kind)
-                snaps[(static_cast<size_t>(b) * L + off) * 3 + kind] =
-                    m.cur - 1;
-        dlen[b] = flush(m);
-    } else {
-        dlen[b] = 0;
     }
-    cur[b] = m.nsym;
-    curb[b] = m.cur;
+    __syncthreads();
+    if (warp == 0) {
+        results_store(R, L, eff, ho->final_pos, lane, snaps + b * L * 3,
+                      dh + b * L * 3, dl + b * L * 3);
+        if (lane == 0) {
+            dlen[b] = ho->len;
+            cur[b] = ho->nsym;
+            curb[b] = ho->curb;
+        }
+    }
 }
 
 }  // namespace
@@ -133,14 +253,13 @@ extern "C" int fused_t1_launch(
         int n, int L, int frac, int cap,
         void* rows, void* snaps, void* dlen, void* dh, void* dl,
         void* cur, void* curb, void* stream) {
+    const size_t smem = smem_bytes(L);
     cudaError_t err = cudaFuncSetAttribute(
         fused_t1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(SMEM_BYTES));
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     if (n <= 0) return 0;
-    dim3 grid((n + NT - 1) / NT);
-    fused_t1_kernel<<<grid, NT, SMEM_BYTES,
-                      static_cast<cudaStream_t>(stream)>>>(
+    fused_t1_kernel<<<n, 2 * WARP, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(blocks),
         static_cast<const int32_t*>(nbps),
         static_cast<const int32_t*>(floors),
@@ -151,10 +270,22 @@ extern "C" int fused_t1_launch(
         static_cast<const int32_t*>(sc_ctx),
         static_cast<const int32_t*>(sc_xor),
         static_cast<const int32_t*>(qe),
-        n, L, frac, cap,
+        L, frac, cap,
         static_cast<uint8_t*>(rows), static_cast<int32_t*>(snaps),
         static_cast<int32_t*>(dlen), static_cast<float*>(dh),
         static_cast<float*>(dl), static_cast<int32_t*>(cur),
         static_cast<int32_t*>(curb));
     return static_cast<int>(cudaGetLastError());
+}
+
+// Resident thread blocks (= code-blocks, two warps each) per SM at plane
+// budget L.
+extern "C" int fused_t1_occupancy(int L, int* blocks_per_sm) {
+    const size_t smem = smem_bytes(L);
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_t1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, fused_t1_kernel, 2 * WARP, smem));
 }

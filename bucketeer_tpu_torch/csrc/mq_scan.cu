@@ -17,7 +17,8 @@
 //
 // What the design does about it:
 // - The coder of t1_common.cuh, fused_t1's, register for register; the
-//   19 context states per block sit in shared memory.
+//   19 context-state words per block (each with its packed Qe entry)
+//   sit in shared memory.
 // - Each thread reads its block's symbols sequentially from global
 //   memory (the read-only path, one byte a symbol) and stops at its own
 //   total, not at the launch's largest.
@@ -58,10 +59,10 @@ mq_scan_kernel(const uint8_t* __restrict__ syms,
                int n, int L, int stride, int cap,
                uint8_t* __restrict__ bytebuf, int32_t* __restrict__ snaps,
                int32_t* __restrict__ dlen, int32_t* __restrict__ cur) {
-    __shared__ int qe[47 * 4];
-    __shared__ uint8_t ctx[NCTX * NT];
+    __shared__ uint32_t qe[NQE + 1];
+    __shared__ uint32_t ctx[NCTX * NT];
 
-    load_qe(qe, qe_g);
+    load_qe(qe, qe_g, threadIdx.x, NT);
     __syncthreads();
 
     const int t = threadIdx.x;
@@ -74,7 +75,8 @@ mq_scan_kernel(const uint8_t* __restrict__ syms,
     for (int e = 0; e < ne; ++e) sn[e] = 0;
 
     Coder m;
-    coder_init(m, bytebuf + static_cast<size_t>(b) * cap, cap, ctx + t);
+    coder_init(m, bytebuf + static_cast<size_t>(b) * cap, cap, ctx + t, NT,
+               qe);
     const uint8_t* s = syms + static_cast<size_t>(b) * stride;
     const int total = totals[b];
     int due = next_boundary(cnt, ne, 0, total);
@@ -110,4 +112,12 @@ extern "C" int mq_scan_launch(
         static_cast<uint8_t*>(bytebuf), static_cast<int32_t*>(snaps),
         static_cast<int32_t*>(dlen), static_cast<int32_t*>(cur));
     return static_cast<int>(cudaGetLastError());
+}
+
+// Resident thread blocks (32 code-blocks, one warp each) per SM; L does
+// not change it (the shared memory is static).
+extern "C" int mq_scan_occupancy(int L, int* blocks_per_sm) {
+    (void)L;
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, mq_scan_kernel, NT, 0));
 }

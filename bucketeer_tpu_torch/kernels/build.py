@@ -119,14 +119,33 @@ class Library:
 
 
 def kernel_library(name: str, sources: tuple, n_ptrs_in: int,
-                   n_ints: int, n_ptrs_out: int) -> Library:
-    """A CUDA kernel library whose one entry ``<name>_launch`` takes
-    input pointers, int scalars, output pointers and the stream, and
-    returns the CUDA error code of the launch."""
+                   n_ints: int, n_ptrs_out: int,
+                   occupancy: bool = False) -> Library:
+    """A CUDA kernel library whose entry ``<name>_launch`` takes input
+    pointers, int scalars, output pointers and the stream, and returns
+    the CUDA error code of the launch. With ``occupancy`` it also
+    exports ``<name>_occupancy(L, int *blocks_per_sm)`` (see
+    :func:`resident_blocks`)."""
     argtypes = ([ctypes.c_void_p] * n_ptrs_in + [ctypes.c_int] * n_ints
                 + [ctypes.c_void_p] * (n_ptrs_out + 1))
-    return Library(name, sources,
-                   {f"{name}_launch": (argtypes, ctypes.c_int)})
+    functions = {f"{name}_launch": (argtypes, ctypes.c_int)}
+    if occupancy:
+        functions[f"{name}_occupancy"] = (
+            [ctypes.c_int, ctypes.POINTER(ctypes.c_int)], ctypes.c_int)
+    return Library(name, sources, functions)
+
+
+def resident_blocks(kernel: Library, L: int) -> int:
+    """Thread blocks of ``kernel`` that one SM of the current device
+    holds at once at plane budget ``L``
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    out = ctypes.c_int(0)
+    err = getattr(kernel.library(), f"{kernel.name}_occupancy")(
+        L, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"{kernel.name} occupancy query failed: CUDA "
+                           f"error {err}")
+    return out.value
 
 
 def launch(kernel: Library, fn_args: tuple, device) -> None:

@@ -13,8 +13,9 @@ other.
 Distortion pairs: the TPU kernel accumulates 4 x distortion of each pass
 as an unevaluated float32 (hi, lo) pair (Dekker product, Knuth sum),
 which represents the integer sum S exactly, so its pair is the canonical
-``(fl(S), S - fl(S))``. Both versions here accumulate S exactly in int64
-from the same float32-rounded factors and emit that canonical pair.
+``(fl(S), S - fl(S))``. Both versions here accumulate S exactly in
+integers (two int64 parts, as a pass's sum can pass 2^63) from the same
+float32-rounded factors and emit that canonical pair.
 """
 from __future__ import annotations
 
@@ -91,10 +92,45 @@ def _d4_ref(v: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return _f32_int(_wrap32(c - b)) * _f32_int(_wrap32(4 * v - b - c))
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """int64 terms -> (..., 2) parts (t >> 32, t & 0xFFFFFFFF). Sums of
+    the parts hold the terms' exact sum S = sum0 * 2^32 + sum1, which a
+    pass's many terms near 2^62 carry past int64."""
+    return torch.stack((t >> 32, t & 0xFFFFFFFF), -1)
+
+
+_BIT31_62 = tuple(1 << j for j in range(31, 63))
+
+
 def _dd_pair(s: torch.Tensor):
-    """Exact int64 sum -> the canonical float32 (hi, lo) pair."""
-    hi = s.to(torch.float32)
-    return hi, (s - hi.to(torch.int64)).to(torch.float32)
+    """An exact sum as (..., 2) parts (see :func:`_wide`) -> the
+    canonical float32 pair (fl(S), fl(S - fl(S))), rounded to nearest
+    even. Below 2^62 in magnitude S is one int64; above, |S| is shifted
+    right to 62 bits with a sticky bit so that one rounding gives
+    fl(|S|), and the residual is taken from the exact parts."""
+    i64, f32 = torch.int64, torch.float32
+    two32 = 1 << 32
+    a = s[..., 0] + (s[..., 1] >> 32)
+    b = s[..., 1] & 0xFFFFFFFF                  # S = a * 2^32 + b
+    neg = a < 0
+    ma = torch.where(neg, -a - (b != 0).to(i64), a)
+    mb = torch.where(neg & (b != 0), two32 - b, b)   # |S| = ma * 2^32 + mb
+    small = ma < (1 << 30)
+    s64 = torch.where(small, a * two32 + b, 0)
+    hi_s = s64.to(f32)
+    lo_s = (s64 - hi_s.to(i64)).to(f32)
+    thr = torch.tensor(_BIT31_62, dtype=i64, device=s.device)
+    k = 1 + (ma[..., None] >= thr).sum(-1)      # bit length of ma - 30
+    kept = ((ma << (32 - k)) | (mb >> k)
+            | ((mb & ((1 << k) - 1)) != 0).to(i64))
+    hm = kept.to(f32)
+    hr = hm.to(i64)
+    r = ((ma - (hr >> (32 - k))) * two32
+         + mb - ((hr & ((1 << (32 - k)) - 1)) << k))
+    scale = torch.pow(2.0, k.to(f32))
+    hi_w = torch.where(neg, -hm, hm) * scale
+    lo_w = torch.where(neg, -r, r).to(f32)
+    return torch.where(small, hi_s, hi_w), torch.where(small, lo_s, lo_w)
 
 
 class _Emits:
@@ -186,7 +222,7 @@ def cxd_scan_plain(L: int, frac: int, blocks, nbps, floors, cls, hs, ws):
         si = (nb * sw).sum((1, 2)) + 12
         chi[:, y + 1, x + 1] = torch.where(newsig, cv[:, y, x],
                                            chi[:, y + 1, x + 1])
-        s_acc += torch.where(newsig, d4s[:, y, x], 0)
+        s_acc += _wide(torch.where(newsig, d4s[:, y, x], 0))
         ems.add(newsig, scx25[si] ^ negsh[:, y, x])
 
     def pass_end(off, t, s_acc):
@@ -202,7 +238,7 @@ def cxd_scan_plain(L: int, frac: int, blocks, nbps, floors, cls, hs, ws):
 
         if off > 0:
             # Significance propagation.
-            s_acc = torch.zeros(n, dtype=i64, device=dev)
+            s_acc = torch.zeros((n, 2), dtype=i64, device=dev)
             for y0 in stripe_rows:
                 for x in range(wmax):
                     ems = _Emits()
@@ -232,11 +268,11 @@ def cxd_scan_plain(L: int, frac: int, blocks, nbps, floors, cls, hs, ws):
             buf.scatter_(1, pos, in_coding_order(sym).to(torch.uint8))
             cur = cur + mr_o.sum(1)
             d4r = _d4_ref(idx, p)
-            pass_end(off, 1, torch.where(mr, d4r, 0).sum((1, 2)))
+            pass_end(off, 1, _wide(torch.where(mr, d4r, 0)).sum((1, 2)))
             ref |= mr
 
         # Cleanup.
-        s_acc = torch.zeros(n, dtype=i64, device=dev)
+        s_acc = torch.zeros((n, 2), dtype=i64, device=dev)
         for y0 in stripe_rows:
             for x in range(wmax):
                 ems = _Emits()
@@ -261,9 +297,9 @@ def cxd_scan_plain(L: int, frac: int, blocks, nbps, floors, cls, hs, ws):
                 col = chi[:, y0 + 1:y0 + 5, x + 1]
                 chi[:, y0 + 1:y0 + 5, x + 1] = torch.where(
                     hit, cv[:, y0:y0 + 4, x], col)
-                s_acc += torch.where(
+                s_acc += _wide(torch.where(
                     rl1, d4s[:, y0:y0 + 4, x].gather(1, k[:, None])[:, 0],
-                    0)
+                    0))
                 win = chi[:, y0:y0 + 6, x:x + 3]
                 si4 = ((win[:, 1:5, 0] + win[:, 1:5, 2]) * 5
                        + win[:, 0:4, 1] + win[:, 2:6, 1] + 12)
@@ -290,7 +326,7 @@ def cxd_scan_plain(L: int, frac: int, blocks, nbps, floors, cls, hs, ws):
 # --- the CUDA kernel ---------------------------------------------------
 
 KERNEL = kernel_library("cxd_scan", ("cxd_scan.cu", "t1_common.cuh"),
-                        9, 4, 5)
+                        9, 4, 5, occupancy=True)
 
 
 def check_group(name: str, blocks, nbps, floors, cls, hs, ws) -> None:

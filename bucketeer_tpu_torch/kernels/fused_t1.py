@@ -45,7 +45,7 @@ def fused_t1_plain(L: int, frac: int, blocks, nbps, floors, cls, hs, ws):
 # --- the CUDA kernel ---------------------------------------------------
 
 KERNEL = kernel_library("fused_t1", ("fused_t1.cu", "t1_common.cuh"),
-                        10, 4, 7)
+                        10, 4, 7, occupancy=True)
 
 
 def fused_t1(L: int, frac: int, blocks, nbps, floors, cls, hs, ws):

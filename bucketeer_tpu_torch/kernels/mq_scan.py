@@ -165,7 +165,7 @@ def mq_scan_plain(L: int, n_steps: int, cap: int, syms, counts, totals,
 # --- the CUDA kernel ---------------------------------------------------
 
 KERNEL = kernel_library("mq_scan", ("mq_scan.cu", "t1_common.cuh"),
-                        5, 4, 4)
+                        5, 4, 4, occupancy=True)
 
 
 def mq_scan(L: int, n_steps: int, cap: int, syms, counts, totals, flags):

@@ -11,17 +11,21 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. the build of every library the paths use, one compiler process per
    source, all at once: the kernels csrc/fused_t1.cu, cxd_scan.cu,
    mq_scan.cu and probe.cu (nvcc, with ptxas's register and spill lines
-   printed) and the host MQ replay csrc/host_mq.cpp (g++); then the
-   capability check (kernels/support.py require_kernels);
+   and each Tier-1 kernel's resident thread blocks per SM printed) and
+   the host MQ replay csrc/host_mq.cpp (g++); then the capability check
+   (kernels/support.py require_kernels);
 3. each kernel against its plain PyTorch version on the same inputs,
    one plain run per launch group held against three kernels: fused_t1,
    cxd_scan, and mq_scan fed cxd_scan's own symbols. Synthetic launch
    groups at L in {8, 16, 32}, frac in {0, 7}, every band class,
    partial, all-zero and floored-dead blocks, each 64x64 at most (plain
-   side on the host CPU), then the largest launch group of the
-   full-size image's first lossless chunk (plain side on the card), with
-   each kernel's time, its bound and the serial chain of its longest
-   block;
+   side on the host CPU, in worker processes), the deep group (L=32,
+   dense blocks at nbp 31 and 30, 1x64 and 64x1 blocks; plain side on
+   the card), then the largest launch group of the full-size image's
+   first lossless chunk (plain side on the card), with each kernel's
+   time, its bound, the serial chain of its longest block, the launch's
+   multiple of that chain and the kernel's residency; then the probe
+   against x + 1 by device time;
 4. slice parity: a 256x256 RGB image through the Kakadu recipe, both
    conversions, encode_jp2 on the card byte-identical to encode_jp2 on
    the CPU (where every kernel runs its plain version), for the fused
@@ -32,13 +36,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    device_mq=False).convert (the CX/D split: device scan, host MQ
    replay), lossless and lossy, each after one warm-up and with every
    launch count set to 0 just before it and read just after: wall time,
-   MPix/s, kernel launches and time, bounds, Tier-1 volume, the split's
-   host stages, peak device memory; the split's files must equal the
-   fused path's byte for byte. Then one synchronized convert of each
+   MPix/s, kernel launches and time (CUDA events around each C launch),
+   bounds, Tier-1 volume, the split's host stages, peak device memory;
+   the split's files must equal the fused path's byte for byte. Then one synchronized convert of each
    kind per path, timed stage by stage; the fused lossy run hands its
    largest L=8 and L=16 launch groups (frac 7, the rate estimator's
    floors) to a second kernel-against-plain check on the card, which
-   also holds mq_scan(cxd_scan(x)) against fused_t1(x);
+   also holds mq_scan(cxd_scan(x)) against fused_t1(x) and times them
+   as phase 3 times the lossless group;
 6. one JSON line with every kernel, then the card line and the result
    line.
 """
@@ -46,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import os
 import shutil
 import struct
@@ -53,7 +59,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -137,6 +143,34 @@ def synthetic_group(rng, L: int, frac: int):
     floors[5] = nbps[5]                             # floored dead
     floors[6] = 2                                   # partly floored
     cls = np.array([0, 1, 2, 0, 1, 2, 0, 1], np.int32)
+    hs = np.array([h for h, _ in hw], np.int32)
+    ws = np.array([w for _, w in hw], np.int32)
+    return [torch.as_tensor(a) for a in (blocks.astype(np.int32), nbps,
+                                         floors, cls, hs, ws)]
+
+
+DEEP_PLANES = 8     # coded planes of the deep group's blocks
+
+
+def deep_group(rng, planes: int = DEEP_PLANES):
+    """The deep corner at L=32: two dense blocks (about half the samples
+    significant) at nbp 31 and 30 over full 64-row extents, so stripes
+    reach row 63 and the widest shifts run, and a 1x64 and a 64x1 block.
+    The floors leave ``planes`` coded planes per block, the top ones:
+    the plain side's time grows with the depth."""
+    hw = [(64, 64), (64, 48), (1, 64), (64, 1)]
+    nbp = [31, 30, 31, 30]
+    n = len(hw)
+    blocks = np.zeros((n, 64, 64), np.int64)
+    for i, ((h, w), p) in enumerate(zip(hw, nbp)):
+        mags = (rng.random((h, w)) < 0.5) * rng.integers(
+            1, 1 << p, size=(h, w), dtype=np.int64)
+        mags[0, 0] = (1 << p) - 1
+        blocks[i, :h, :w] = mags * np.where(rng.random((h, w)) < 0.5,
+                                            -1, 1)
+    nbps = np.array(nbp, np.int32)
+    floors = np.maximum(nbps - planes, 0).astype(np.int32)
+    cls = np.array([0, 1, 2, 1], np.int32)
     hs = np.array([h for h, _ in hw], np.int32)
     ws = np.array([w for _, w in hw], np.int32)
     return [torch.as_tensor(a) for a in (blocks.astype(np.int32), nbps,
@@ -308,23 +342,48 @@ def time_kernel(fn, reps: int = 5) -> float:
 
 
 class LaunchTimer:
-    """Wraps a kernel wrapper as codec/cxd.py calls it: CUDA events
-    around each launch, plus what ``volume(L, args, out)`` keeps of the
-    launch (small tensors only) for its bound."""
+    """Times one kernel's launches on a main path: CUDA events recorded
+    right before and after the C launch itself (kernels/build.py
+    ``launch`` as the wrapper's module calls it, after the capability
+    check), so host work around a launch does not count; and, by
+    wrapping the wrapper as codec/cxd.py calls it, what ``volume(L,
+    args, out)`` keeps of each launch (small tensors only) for its
+    bound."""
 
-    def __init__(self, fn, volume):
+    def __init__(self, module, fn, volume):
+        self.module = module            # the wrapper's module
         self.fn = fn
         self.volume = volume
-        self.launches = []
+        self.launches = []              # (start, stop, volume)
+        self._events = None
+        self._real = None
 
     def __call__(self, L, frac, *args):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
+        self._events = None
         out = self.fn(L, frac, *args)
-        stop.record()
-        self.launches.append((start, stop, self.volume(L, args, out)))
+        if self._events is not None:
+            self.launches.append(self._events + (self.volume(L, args, out),))
         return out
+
+    def __enter__(self):
+        from bucketeer_tpu_torch.kernels.support import require_kernels
+
+        real = self._real = self.module.launch
+
+        def timed(kernel, fn_args, device):
+            require_kernels(device)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            real(kernel, fn_args, device)
+            stop.record()
+            self._events = (start, stop)
+
+        self.module.launch = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.launch = self._real
 
     def kernel_ms(self) -> float:
         torch.cuda.synchronize()
@@ -457,25 +516,47 @@ def phase_build() -> None:
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"build: {name} ptxas: {line.strip()}")
+        if name in ("fused_t1", "cxd_scan", "mq_scan"):
+            from bucketeer_tpu_torch.kernels.build import resident_blocks
+
+            say(f"build: {name} resident thread blocks (= warps) per SM "
+                "at L 8 / 16 / 32: " + " / ".join(
+                    str(resident_blocks(lib, L)) for L in (8, 16, 32)))
     require_kernels("cuda")
     say("build: require_kernels(cuda) passed (probe x + 1 exact)")
 
 
-def check_group(label: str, L: int, frac: int, args, plain_on: str) -> dict:
+def plain_on_host(job) -> tuple:
+    """One plain run of a launch group on the host CPU, in a worker
+    process (one thread): (L, frac, numpy arrays) in, (scan, MQ) outputs
+    as numpy arrays and both times out."""
+    L, frac, arrays = job
+    torch.set_num_threads(1)
+    scan, mq, t_scan, t_mq = run_plain(
+        L, frac, [torch.from_numpy(a) for a in arrays])
+    return ([t.numpy() for t in scan], [t.numpy() for t in mq], t_scan,
+            t_mq)
+
+
+def check_group(label: str, L: int, frac: int, args, plain=None) -> dict:
     """One plain run of a launch group held against the three Tier-1
     kernels at tolerance 0: fused_t1, cxd_scan, and mq_scan over
     cxd_scan's own symbols. ``args`` on the card; the plain side runs on
-    ``plain_on`` ("cpu" or "cuda"). Returns the worst errors per kernel
-    and the outputs."""
+    the card too, unless ``plain`` holds plain_on_host's result for the
+    group. Returns the worst errors per kernel and the outputs."""
     t0 = time.perf_counter()
     fused, scan, mq = run_kernels(L, frac, args)
     t_k = time.perf_counter() - t0
-    p_args = [a.to(plain_on) for a in args]
-    p_scan, p_mq, t_scan, t_mq = run_plain(L, frac, p_args)
+    if plain is None:
+        p_scan, p_mq, t_scan, t_mq = run_plain(L, frac, args)
+        plain_on = "cuda"
+    else:
+        p_scan, p_mq, t_scan, t_mq = plain
+        plain_on = "cpu"
     dev = args[0].device
 
     def back(t):
-        return [x.to(dev) for x in t]
+        return [torch.as_tensor(x).to(dev) for x in t]
 
     p_scan, p_mq = back(p_scan), back(p_mq)
     errs = {"fused_t1": compare_fused(L, fused, as_fused(p_scan, p_mq)),
@@ -506,12 +587,15 @@ def check_chain(label: str, L: int, res: dict) -> float:
     return err
 
 
-def time_group(L: int, frac: int, args, res: dict) -> dict:
+def time_group(label: str, L: int, frac: int, args, res: dict) -> dict:
     """Each Tier-1 kernel's time on one real launch group by CUDA
-    events, its bound, and the serial chain: the group's longest block
-    launched alone (one thread, no other lane in its warp)."""
+    events, its bound, the serial chain (the group's longest block
+    launched alone), the launch's multiple of that chain, and how many
+    thread blocks and warps of the kernel one SM holds at once (its
+    exported occupancy query)."""
     from bucketeer_tpu_torch.kernels import cxd_scan as cs, fused_t1 as ft
     from bucketeer_tpu_torch.kernels import mq_scan as ms
+    from bucketeer_tpu_torch.kernels.build import resident_blocks
 
     fused, scan, mq = res["fused"], res["scan"], res["mq"]
     flags = flags_of(args)
@@ -529,60 +613,117 @@ def time_group(L: int, frac: int, args, res: dict) -> dict:
     b = int(torch.argmax(scan[4]))
     one = [a[b:b + 1].contiguous() for a in args]
     chain = {"fused_t1": time_kernel(lambda: ft.fused_t1(L, frac, *one)),
-             "cxd_scan": time_kernel(lambda: cs.cxd_scan(L, frac, *one))}
+             "cxd_scan": time_kernel(lambda: cs.cxd_scan(L, frac, *one)),
+             "mq_scan": time_kernel(lambda: ms.mq_scan(
+                 L, *mq_budget(L), scan[0][b:b + 1].contiguous(),
+                 scan[1][b:b + 1].contiguous(), scan[4][b:b + 1].contiguous(),
+                 flags[b:b + 1].contiguous()))}
     t_scan, t_mq = res["plain_s"]
     plain_ms = {"fused_t1": (t_scan + t_mq) * 1e3, "cxd_scan": t_scan * 1e3,
                 "mq_scan": t_mq * 1e3}
+    kernels = {"fused_t1": ft.KERNEL, "cxd_scan": cs.KERNEL,
+               "mq_scan": ms.KERNEL}
+    # Code-blocks per thread block: one warp each in the scans, one
+    # thread each in mq_scan.
+    per_tb = {"fused_t1": 1, "cxd_scan": 1, "mq_scan": 32}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = args[0].shape[0]
     n_dec = int(scan[4][b])
+    out = {}
     for name in ms_of:
         bound, by, moved = bound_of[name]
-        say(f"kernel time: {name} L={L} {args[0].shape[0]} blocks: "
+        tbs = resident_blocks(kernels[name], L)
+        fits = tbs * per_tb[name] * sms
+        say(f"kernel time: {name} {label} L={L} {n} blocks: "
             f"{ms_of[name]:.3f} ms/launch, bound {bound:.6f} ms by {by} "
-            f"({moved} B), plain on the card {plain_ms[name]:.0f} ms"
-            + (f"; serial chain (longest block alone, {n_dec} decisions) "
-               f"{chain[name]:.3f} ms, "
-               f"{chain[name] * 1e6 / max(n_dec, 1):.1f} ns per decision"
-               if name in chain else ""))
-    return {name: {"ms": ms_of[name], "plain_ms": plain_ms[name],
-                   "bound_ms": bound_of[name][0],
-                   "bound_by": bound_of[name][1]} for name in ms_of}
+            f"({moved} B), plain on the card {plain_ms[name]:.0f} ms; "
+            f"serial chain (longest block alone, {n_dec} decisions) "
+            f"{chain[name]:.3f} ms, "
+            f"{chain[name] * 1e6 / max(n_dec, 1):.1f} ns per decision, "
+            f"launch/chain {ms_of[name] / chain[name]:.2f}; resident per SM "
+            f"{tbs} thread blocks = {tbs} warps ({tbs * per_tb[name]} "
+            f"code-blocks), {fits} on {sms} SMs: {-(-n // fits)} wave(s)")
+        out[name] = {"ms": ms_of[name], "plain_ms": plain_ms[name],
+                     "bound_ms": bound, "bound_by": by,
+                     "chain_ms": chain[name]}
+    return out
 
 
 def phase_kernel_vs_plain(rng, img) -> tuple:
+    """The synthetic groups' plain sides run in worker processes on the
+    host's cores while the deep group and the image group run theirs on
+    the card."""
     worst = {"fused_t1": 0.0, "cxd_scan": 0.0, "mq_scan": 0.0}
-    for L in (8, 16, 32):
-        for frac in (0, 7):
-            args = [a.cuda() for a in synthetic_group(rng, L, frac)]
-            res = check_group("synthetic", L, frac, args, "cpu")
-            for k, v in res["errs"].items():
-                worst[k] = max(worst[k], v)
 
-    # One real launch group of the full-size image: the largest of its
-    # first lossless chunk, plain side on the card.
-    groups = first_chunk_groups(img)
-    L, _, args = max(groups, key=lambda g: len(g[1]))
-    res = check_group("image group (lossless first chunk)", L, 0, args,
-                      "cuda")
-    for k, v in res["errs"].items():
-        worst[k] = max(worst[k], v)
-    worst["fused_t1"] = max(worst["fused_t1"],
-                            check_chain("lossless first chunk", L, res))
-    return worst, time_group(L, 0, args, res)
+    def note(res):
+        for k, v in res["errs"].items():
+            worst[k] = max(worst[k], v)
+
+    jobs = [(L, frac, synthetic_group(rng, L, frac))
+            for L in (8, 16, 32) for frac in (0, 7)]
+    deep = [a.cuda() for a in deep_group(rng)]
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=len(jobs), mp_context=spawn) as pool:
+        plains = [pool.submit(plain_on_host,
+                              (L, frac, [a.numpy() for a in args]))
+                  for L, frac, args in jobs]
+        # The deep corner.
+        note(check_group("synthetic deep (nbp 31/30, 64-row, 1x64, 64x1)",
+                         32, 0, deep))
+        # One real launch group of the full-size image: the largest of
+        # its first lossless chunk.
+        groups = first_chunk_groups(img)
+        L, _, args = max(groups, key=lambda g: len(g[1]))
+        res = check_group("image group (lossless first chunk)", L, 0, args)
+        note(res)
+        worst["fused_t1"] = max(worst["fused_t1"],
+                                check_chain("lossless first chunk", L, res))
+        for (Ls, frac, sargs), plain in zip(jobs, plains):
+            note(check_group("synthetic", Ls, frac,
+                             [a.cuda() for a in sargs], plain.result()))
+    return worst, time_group("lossless", L, 0, args, res)
+
+
+def device_kernel_ms(fn, reps: int = 1000) -> tuple:
+    """Device time per kernel of ``fn`` (one kernel per call) over
+    ``reps`` calls: the mean of the kernel durations torch.profiler
+    records (it may drop some of them); where it records none, CUDA
+    events around the ``reps`` calls (then the host's enqueue rate
+    bounds it from above). Returns (ms, source)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.device_time for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.device_time > 0]
+    if times:
+        return (sum(times) / len(times) / 1e3,
+                f"profiler kernel durations, {len(times)} kernels")
+    return time_kernel(fn, reps), "CUDA events"
 
 
 def phase_probe() -> dict:
     """The capability probe against its plain version, x + 1, which is
-    also the one PyTorch call that computes the same function."""
+    also the one PyTorch call that computes the same function; each
+    timed by its device time over 1,000 launches."""
     from bucketeer_tpu_torch.kernels import support
 
     x = torch.arange(8, dtype=torch.int32, device="cuda")
     err = _err(support.probe(x), x + 1)
-    ms = time_kernel(lambda: support.probe(x))
-    plain_ms = time_kernel(lambda: x + 1)
+    ms, how = device_kernel_ms(lambda: support.probe(x))
+    plain_ms, plain_how = device_kernel_ms(lambda: x + 1)
+    enqueue_ms = time_kernel(lambda: support.probe(x), 1000)
     bound, by, moved = _bound(2 * x.numel() * 4, x.numel())
     say(f"kernel-vs-plain: probe (8,) int32 max_abs_err={err} (tolerance "
-        f"0); {ms:.4f} ms/launch, x + 1 {plain_ms:.4f} ms, bound "
-        f"{bound:.9f} ms by {by} ({moved} B)")
+        f"0); {ms:.5f} ms/launch ({how}), x + 1 {plain_ms:.5f} ms "
+        f"({plain_how}), 1,000 probe launches by CUDA events "
+        f"{enqueue_ms:.5f} ms each, bound {bound:.9f} ms by {by} "
+        f"({moved} B)")
     if err != 0:
         fail("the probe kernel differs from x + 1")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -677,6 +818,7 @@ def main_path(conv, src: str, img, split: bool) -> dict:
     before and read just after."""
     from bucketeer_tpu_torch.codec import cxd, t1_batch
     from bucketeer_tpu_torch.converters import Conversion
+    from bucketeer_tpu_torch.kernels import cxd_scan, fused_t1
 
     h, w = img.shape[:2]
     path = "split" if split else "fused"
@@ -685,7 +827,8 @@ def main_path(conv, src: str, img, split: bool) -> dict:
     files = {}
     reset_counts()
     for conversion in (Conversion.LOSSLESS, Conversion.LOSSY):
-        timer = LaunchTimer(real, _scan_volume if split else _fused_volume)
+        timer = LaunchTimer(cxd_scan if split else fused_t1, real,
+                            _scan_volume if split else _fused_volume)
         setattr(cxd, kernel, timer)
         host = StageTimer([("pass tables", cxd, "pass_tables"),
                            ("row fetch", cxd, "_fetch_block_rows"),
@@ -702,7 +845,7 @@ def main_path(conv, src: str, img, split: bool) -> dict:
         cxd._fetch_block_rows = counting_fetch
         torch.cuda.reset_peak_memory_stats()
         try:
-            with host:
+            with host, timer:
                 t0 = time.perf_counter()
                 out = conv.convert(f"smoke-{path}-{conversion.value}", src,
                                    conversion)
@@ -725,8 +868,8 @@ def main_path(conv, src: str, img, split: bool) -> dict:
                 f"{h * w / wall / 1e6:.3f} MPix/s, {len(data)} B "
                 f"({len(data) * 8 / (h * w):.3f} bpp); {kernel} launches "
                 f"{n}, kernel {kms:.3f} ms total, {kms / max(n, 1):.3f} "
-                f"ms/launch (CUDA events around each launch: a host delay "
-                f"between them counts), bound {sum(b[0] for b in bounds):.4f} ms "
+                f"ms/launch (CUDA events around each C launch), bound "
+                f"{sum(b[0] for b in bounds):.4f} ms "
                 f"(largest group: {timer.launches[big][2][1].shape[0]} "
                 f"blocks, bound {bounds[big][0]:.6f} ms by {bounds[big][1]}"
                 f", {bounds[big][2]} B); blocks {st['blocks']}, symbols "
@@ -861,11 +1004,12 @@ def main() -> None:
     for L in (8, 16):
         frac, group = main_res["lossy_groups"][L]
         label = "image group (lossy, rate-estimator floors)"
-        res = check_group(label, L, frac, group, "cuda")
+        res = check_group(label, L, frac, group)
         for k, v in res["errs"].items():
             worst[k] = max(worst[k], v)
         worst["fused_t1"] = max(worst["fused_t1"],
                                 check_chain("lossy", L, res))
+        time_group("lossy", L, frac, group, res)
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     counts = main_res["counts"]
