@@ -1,9 +1,12 @@
-"""PyTorch and CUDA port of bucketeer_tpu's JPEG 2000 encoder.
+"""PyTorch and CUDA port of bucketeer_tpu's JPEG 2000 codec.
 
 TIFF -> JP2 through :class:`converters.cuda.CudaConverter`, with the
 sample transform in PyTorch and EBCOT Tier-1 on hand-written Hopper
 kernels: fused (``csrc/fused_t1.cu``), or split into the device CX/D
 scan (``csrc/cxd_scan.cu``) and a host MQ replay (``csrc/host_mq.cpp``).
+JP2 -> pixels through :class:`converters.reader.CudaReader` (and
+``codec.decode.decode``): Tier-2 and Tier-1 decode on the host, the
+inverse transform as torch ops on the card.
 The package imports ``torch`` and ``numpy`` and nothing of the JAX
 package; its entry points run on the card unless the caller passes
 ``device="cpu"``.

@@ -85,10 +85,55 @@ def _fwd97_last(x: torch.Tensor):
     return K_LO * y[..., 0::2], K_HI * y[..., 1::2]
 
 
-def _along_rows(fn, x: torch.Tensor):
-    """Apply a last-axis function along axis -2 (vertical direction)."""
-    lo, hi = fn(x.transpose(-1, -2))
-    return lo.transpose(-1, -2), hi.transpose(-1, -2)
+def _interleave(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Even samples from ``lo``, odd ones from ``hi`` (which may be
+    empty) along the last axis."""
+    y = lo.new_zeros(lo.shape[:-1] + (lo.shape[-1] + hi.shape[-1],))
+    y[..., 0::2] = lo
+    if hi.shape[-1]:
+        y[..., 1::2] = hi
+    return y
+
+
+def _inv53_last(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Inverse 5/3 along the last axis. Integer-exact (``>>`` on int32
+    is arithmetic, as in XLA)."""
+    n = lo.shape[-1] + hi.shape[-1]
+    if n == 1:
+        return lo
+    y = _extend(_interleave(lo, hi))
+    even, odd = _masks(y.shape[-1], y.device)
+    y = torch.where(even, y - ((_neighbor_sum(y) + 2) >> 2), y)
+    y = torch.where(odd, y + (_neighbor_sum(y) >> 1), y)
+    return y[..., _PAD:_PAD + n]
+
+
+def _inv97_last(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Inverse 9/7 along the last axis. float32; the steps in the JAX
+    package's order, each its own elementwise op, so the card and the
+    CPU round alike."""
+    n = lo.shape[-1] + hi.shape[-1]
+    if n == 1:
+        return lo
+    # Multiplications by 1/K_LO = K and 1/K_HI, not divisions: PyTorch
+    # turns a division by a scalar into a multiplication by its float32
+    # reciprocal on one device and not necessarily on another.
+    y = _extend(_interleave(lo * K, hi * (1.0 / K_HI)))
+    even, odd = _masks(y.shape[-1], y.device)
+    y = torch.where(even, y - DELTA * _neighbor_sum(y), y)
+    y = torch.where(odd, y - GAMMA * _neighbor_sum(y), y)
+    y = torch.where(even, y - BETA * _neighbor_sum(y), y)
+    y = torch.where(odd, y - ALPHA * _neighbor_sum(y), y)
+    return y[..., _PAD:_PAD + n]
+
+
+def _along_rows(fn, x: torch.Tensor, *rest):
+    """Apply a last-axis function of one or more tensors along axis -2
+    (vertical direction)."""
+    out = fn(*(a.transpose(-1, -2) for a in (x, *rest)))
+    if isinstance(out, tuple):
+        return tuple(o.transpose(-1, -2) for o in out)
+    return out.transpose(-1, -2)
 
 
 def dwt2d_forward(x: torch.Tensor, levels: int, reversible: bool):
@@ -109,6 +154,18 @@ def dwt2d_forward(x: torch.Tensor, levels: int, reversible: bool):
         lh, hh = fwd(v_hi)
         bands.append({"HL": hl, "LH": lh, "HH": hh})
     return ll, bands
+
+
+def dwt2d_inverse(ll: torch.Tensor, bands, reversible: bool):
+    """Multi-level 2-D inverse DWT: the coarsest ``ll`` and ``bands`` as
+    :func:`dwt2d_forward` returns them -> (..., H, W). Horizontal
+    synthesis first, then vertical (the forward order reversed)."""
+    inv = _inv53_last if reversible else _inv97_last
+    for band in reversed(bands):
+        v_lo = inv(ll, band["HL"])
+        v_hi = inv(band["LH"], band["HH"])
+        ll = _along_rows(inv, v_lo, v_hi)
+    return ll
 
 
 def subband_shapes(h: int, w: int, levels: int):

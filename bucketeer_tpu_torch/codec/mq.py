@@ -1,9 +1,11 @@
-"""MQ arithmetic coder tables and the host encoder (JPEG 2000 Part 1 /
-ITU-T T.800, Annex C).
+"""MQ arithmetic coder tables, the host encoder and the host decoder
+(JPEG 2000 Part 1 / ITU-T T.800, Annex C).
 
 The state table and context ids feed the fused Tier-1 kernel
 (``kernels/fused_t1.py``); ``MQEncoder`` is the register-exact host
-reference the tests hold the kernel's byte segments against.
+reference the tests hold the kernel's byte segments against;
+``MQDecoder`` drives the read path's Tier-1 decode
+(``codec/decode/t1_dec.py``).
 """
 from __future__ import annotations
 
@@ -131,3 +133,79 @@ class MQEncoder:
         if out and out[-1] == 0xFF:
             out = out[:-1]
         return bytes(out)
+
+
+class MQDecoder:
+    """Spec Annex C.3 decoder (the read path's host Tier-1)."""
+
+    def __init__(self, data: bytes) -> None:
+        self.data = data
+        self.bp = 0
+        self.ctx_idx = initial_states()
+        self.ctx_mps = [0] * N_CONTEXTS
+        b = self._byte(0)
+        self.c = b << 16
+        self._bytein()
+        self.c = (self.c << 7) & 0xFFFFFFFF
+        self.ct -= 7
+        self.a = 0x8000
+
+    def _byte(self, i: int) -> int:
+        return self.data[i] if i < len(self.data) else 0xFF
+
+    def _bytein(self) -> None:
+        if self._byte(self.bp) == 0xFF:
+            if self._byte(self.bp + 1) > 0x8F:
+                self.c += 0xFF00
+                self.ct = 8
+            else:
+                self.bp += 1
+                self.c += self._byte(self.bp) << 9
+                self.ct = 7
+        else:
+            self.bp += 1
+            self.c += self._byte(self.bp) << 8
+            self.ct = 8
+
+    def decode(self, ctx: int) -> int:
+        idx = self.ctx_idx[ctx]
+        qe, nmps, nlps, switch = QE_TABLE[idx]
+        self.a -= qe
+        if ((self.c >> 16) & 0xFFFF) < qe:
+            # LPS exchange path
+            if self.a < qe:
+                d = self.ctx_mps[ctx]
+                self.ctx_idx[ctx] = nmps
+            else:
+                d = 1 - self.ctx_mps[ctx]
+                if switch:
+                    self.ctx_mps[ctx] ^= 1
+                self.ctx_idx[ctx] = nlps
+            self.a = qe
+            self._renorm()
+        else:
+            self.c -= qe << 16
+            if (self.a & 0x8000) == 0:
+                # MPS exchange path
+                if self.a < qe:
+                    d = 1 - self.ctx_mps[ctx]
+                    if switch:
+                        self.ctx_mps[ctx] ^= 1
+                    self.ctx_idx[ctx] = nlps
+                else:
+                    d = self.ctx_mps[ctx]
+                    self.ctx_idx[ctx] = nmps
+                self._renorm()
+            else:
+                d = self.ctx_mps[ctx]
+        return d
+
+    def _renorm(self) -> None:
+        while True:
+            if self.ct == 0:
+                self._bytein()
+            self.a = (self.a << 1) & 0xFFFF
+            self.c = (self.c << 1) & 0xFFFFFFFF
+            self.ct -= 1
+            if self.a & 0x8000:
+                break

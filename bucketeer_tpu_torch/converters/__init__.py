@@ -1,6 +1,8 @@
-"""Converter SPI: TIFF -> JPEG 2000 on the card."""
+"""Converter SPI: TIFF -> JPEG 2000 on the card, and the read path back
+to pixels."""
 from .base import Conversion, Converter, ConverterError, output_path
 from .cuda import CudaConverter
+from .reader import CudaReader, derivative_path
 
 __all__ = ["Conversion", "Converter", "ConverterError", "CudaConverter",
-           "output_path"]
+           "CudaReader", "derivative_path", "output_path"]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (bucketeer_tpu_torch) on one
 NVIDIA GPU: the quickest proof that the port builds, is right and runs
-its two Tier-1 paths on the card.
+its two Tier-1 paths and its read path on the card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -44,7 +44,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    floors) to a second kernel-against-plain check on the card, which
    also holds mq_scan(cxd_scan(x)) against fused_t1(x) and times them
    as phase 3 times the lossless group;
-6. one JSON line with every kernel, then the card line and the result
+6. the read path on phase 5's fused derivatives, through
+   CudaReader(device="cuda").read with a metrics sink, the launch counts
+   set to 0 just before and read just after (the read path runs no
+   Tier-1 kernel): a full-resolution tile (1024, 1536, 512, 512), a
+   window over four tiles (lossless) or nine (lossy) and a thumbnail
+   (reduce=4 lossless, reduce=3 lossy), each cold and then warm (one
+   tile-cache hit returning the same array), with its decode stages,
+   MQ decisions, code-blocks, the device inverse by CUDA events and the
+   output's size; then the lossless reads equal the source crop (the
+   thumbnail: the CPU decode of the same bytes) exactly, the lossy tile
+   equals the crop of a read of (1000, 1500, 600, 600) exactly and is
+   within +-1 of the same read on the CPU, as the lossy thumbnail is
+   (differing samples counted), the lossy tile's PSNR against the
+   source, one stream index per file, and the device's busy time inside
+   the inverse of two reads by torch.profiler;
+7. one JSON line with every kernel, then the card line and the result
    line.
 """
 from __future__ import annotations
@@ -979,6 +994,236 @@ def phase_breakdown(conv, src: str, split: bool):
     return capture.groups
 
 
+# --- phase 6: the read path ---------------------------------------------
+
+class ReadSink:
+    """The decoder's and the reader's metrics sink: seconds and items
+    per stage, and counters, summed since the last ``take``."""
+
+    def __init__(self):
+        self.stages: dict = {}
+        self.counters: dict = {}
+
+    def record(self, stage, seconds, pixels=0, items=0):
+        sec, its, n = self.stages.get(stage, (0.0, 0, 0))
+        self.stages[stage] = (sec + seconds, its + items, n + 1)
+
+    def count(self, name, n=1):
+        self.counters[name] = self.counters.get(name, 0) + n
+
+    def take(self) -> tuple:
+        out = (self.stages, self.counters)
+        self.stages, self.counters = {}, {}
+        return out
+
+
+class InverseTimer:
+    """CUDA events around each call of the decoder's device inverse (full
+    tiles and region windows): from before the host-to-device copy to
+    after the samples' ``.cpu()``, summed over the calls."""
+
+    def __init__(self):
+        self.ms = 0.0
+        self.calls = 0
+        self._saved = []
+
+    def _wrap(self, fn):
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            stop.record()
+            torch.cuda.synchronize()
+            self.ms += start.elapsed_time(stop)
+            self.calls += 1
+            return out
+        return timed
+
+    def __enter__(self):
+        from bucketeer_tpu_torch.codec.decode import decoder
+
+        for attr in ("run_inverse", "run_region_inverse"):
+            fn = getattr(decoder, attr)
+            self._saved.append((attr, fn))
+            setattr(decoder, attr, self._wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        from bucketeer_tpu_torch.codec.decode import decoder
+
+        for attr, fn in self._saved:
+            setattr(decoder, attr, fn)
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+
+
+def _within_one(label: str, got: np.ndarray, ref: np.ndarray) -> int:
+    """Fail unless ``got`` is within +-1 of ``ref``; the count of samples
+    that differ."""
+    if got.shape != ref.shape:
+        fail(f"{label}: shape {got.shape} != {ref.shape}")
+    diff = np.abs(got.astype(np.int64) - ref)
+    n = int((diff > 0).sum())
+    say(f"read check: {label}: max |diff| {int(diff.max())} (tolerance 1), "
+        f"{n} of {diff.size} samples differ")
+    if diff.max() > 1:
+        fail(f"{label}: differs by more than 1")
+    return n
+
+
+def _exact(label: str, got: np.ndarray, ref: np.ndarray) -> None:
+    same = got.shape == ref.shape and np.array_equal(got, ref)
+    say(f"read check: {label}: identical={same} (tolerance 0)")
+    if not same:
+        fail(f"{label}: not identical")
+
+
+def phase_read(img) -> dict:
+    """IIIF-style reads of the main path's 4096x4096 derivatives through
+    CudaReader(device="cuda").read: per read the cold and warm wall
+    time, the decode stages, the Tier-1 volume, the device inverse by
+    CUDA events and the output's size; then the checks against the
+    source, a larger window and the CPU."""
+    from bucketeer_tpu_torch.codec.decode import decode, set_metrics_sink
+    from bucketeer_tpu_torch.converters import CudaReader
+    from bucketeer_tpu_torch.converters.reader import derivative_path
+
+    paths = {kind: derivative_path(f"smoke-fused-{kind}")
+             for kind in ("lossless", "lossy")}
+    if None in paths.values():
+        fail(f"the main path's derivatives are missing: {paths}")
+    tile = (1024, 1536, 512, 512)                     # x, y, w, h
+    reads = [("lossless", "one tile", {"region": tile}),
+             ("lossless", "window over four tiles",
+              {"region": (1900, 900, 384, 256)}),
+             ("lossless", "thumbnail", {"reduce": 4}),
+             ("lossy", "one tile", {"region": tile}),
+             ("lossy", "window over nine tiles",
+              {"region": (1000, 1500, 600, 600)}),
+             ("lossy", "thumbnail", {"reduce": 3})]
+    sink = ReadSink()
+    reader = CudaReader(device="cuda", metrics=sink)
+    set_metrics_sink(sink)
+    out = {}
+    rows = []
+    reset_counts()
+    try:
+        for kind, label, kw in reads:
+            with InverseTimer() as inv:
+                t0 = time.perf_counter()
+                cold = reader.read(paths[kind], **kw)
+                t_cold = time.perf_counter() - t0
+            stages, counters = sink.take()
+            t0 = time.perf_counter()
+            warm = reader.read(paths[kind], **kw)
+            t_warm = time.perf_counter() - t0
+            _, warm_counters = sink.take()
+            if warm is not cold or warm_counters != {"decode.cache_hits": 1}:
+                fail(f"read {kind} {label}: the repeat was not one tile-cache "
+                     f"hit ({warm_counters})")
+            row = {"read": f"{kind} {label}", "args": kw,
+                   "shape": list(cold.shape), "bytes": int(cold.nbytes),
+                   "cold_s": t_cold, "warm_s": t_warm,
+                   "inverse_event_ms": inv.ms, "inverse_calls": inv.calls,
+                   "stages": {k: v[0] for k, v in stages.items()},
+                   "decisions": counters.get("decode.mq_symbols", 0),
+                   "blocks": counters.get("decode.blocks", 0),
+                   "packets_skipped": counters.get("decode.packets_skipped",
+                                                   0),
+                   "index_builds": counters.get("decode.index_cache_misses",
+                                                0)}
+            rows.append(row)
+            out[(kind, label)] = cold
+            st = row["stages"]
+            rate = row["decisions"] / max(st.get("decode.mq", 0), 1e-9) / 1e6
+            say(f"read {kind} {label} {kw}: out {tuple(cold.shape)} "
+                f"{cold.dtype} ({cold.nbytes} B); cold {t_cold:.3f} s = "
+                f"t2_parse {st.get('decode.t2_parse', 0):.3f} + mq "
+                f"{st.get('decode.mq', 0):.3f} + t1 assembly "
+                f"{st.get('decode.t1', 0):.4f} + device inverse (host) "
+                f"{st.get('decode.device_inverse', 0):.4f} + index build "
+                f"{st.get('decode.index_build', 0):.3f} s; device inverse by "
+                f"CUDA events {inv.ms:.3f} ms over {inv.calls} call(s); "
+                f"{row['decisions']} MQ decisions in {row['blocks']} "
+                f"code-blocks ({rate:.3f} M/s), {row['packets_skipped']} "
+                f"packets skipped; warm hit {t_warm * 1e3:.4f} ms")
+    finally:
+        set_metrics_sink(None)
+    counts = read_counts()
+    say(f"read: kernel launches in the read path's run {counts} (the read "
+        "path runs none of the Tier-1 kernels)")
+    if any(counts.values()):
+        fail(f"the read path launched a Tier-1 kernel: {counts}")
+    builds = sum(r["index_builds"] for r in rows)
+    say(f"read: stream index builds {builds} for 2 files")
+    if builds != 2:
+        fail("the reader did not build one stream index per file")
+
+    x, y, w, h = tile
+    _exact("lossless one tile == source crop", out["lossless", "one tile"],
+           img[y:y + h, x:x + w])
+    _exact("lossless window over four tiles == source crop",
+           out["lossless", "window over four tiles"], img[900:1156, 1900:2284])
+    with open(paths["lossless"], "rb") as fh:
+        data = fh.read()
+    t0 = time.perf_counter()
+    ref = decode(data, reduce=4, device="cpu")
+    say(f"read: lossless thumbnail decoded on the CPU in "
+        f"{time.perf_counter() - t0:.2f} s")
+    _exact("lossless thumbnail (reduce=4), card == CPU",
+           out["lossless", "thumbnail"], ref)
+    big = out["lossy", "window over nine tiles"]
+    _exact("lossy one tile == crop of the (1000, 1500, 600, 600) window",
+           out["lossy", "one tile"], big[36:548, 24:536])
+    on_cpu = CudaReader(device="cpu")
+    t0 = time.perf_counter()
+    cpu_tile = on_cpu.read(paths["lossy"], region=tile)
+    cpu_thumb = on_cpu.read(paths["lossy"], reduce=3)
+    say(f"read: lossy tile and thumbnail read on the CPU in "
+        f"{time.perf_counter() - t0:.2f} s")
+    n_tile = _within_one("lossy one tile, card vs CPU",
+                         out["lossy", "one tile"], cpu_tile)
+    n_thumb = _within_one("lossy thumbnail (reduce=3), card vs CPU",
+                          out["lossy", "thumbnail"], cpu_thumb)
+    db = psnr(out["lossy", "one tile"], img[y:y + h, x:x + w])
+    say(f"read: lossy one tile PSNR against the source {db:.3f} dB")
+    for row in rows:
+        if row["read"] in ("lossless thumbnail", "lossy one tile"):
+            row["device_busy_ms"], row["device_ops"] = profile_inverse(
+                reader, paths, row)
+    say("read table: " + json.dumps(rows))
+    return {"rows": rows, "differ": (n_tile, n_thumb), "psnr": db}
+
+
+def profile_inverse(reader, paths: dict, row: dict) -> tuple:
+    """One more cold read under torch.profiler: the device's busy time
+    (kernel and copy durations) against the inverse's CUDA-event span
+    from the unprofiled run, so the rest of that span is the device
+    idle between the host's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kind, _ = row["read"].split(" ", 1)
+    reader.reset_caches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        reader.read(paths[kind], **row["args"])
+        torch.cuda.synchronize()
+    busy = [e.device_time for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.device_time > 0]
+    busy_ms = sum(busy) / 1e3
+    span = row["inverse_event_ms"]
+    say(f"read profile: {row['read']}: {len(busy)} device operations "
+        f"(kernels and copies), busy {busy_ms:.3f} ms of the inverse's "
+        f"{span:.3f} ms by CUDA events (device idle "
+        f"{100 * (1 - busy_ms / span):.1f} % of it), "
+        f"{100 * busy_ms / 1e3 / row['cold_s']:.3f} % of the cold read")
+    return busy_ms, len(busy)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -999,17 +1244,18 @@ def main() -> None:
     os.environ["BUCKETEER_TMPDIR"] = workdir
     try:
         main_res = phase_main(img, workdir)
+        for L in (8, 16):
+            frac, group = main_res["lossy_groups"][L]
+            label = "image group (lossy, rate-estimator floors)"
+            res = check_group(label, L, frac, group)
+            for k, v in res["errs"].items():
+                worst[k] = max(worst[k], v)
+            worst["fused_t1"] = max(worst["fused_t1"],
+                                    check_chain("lossy", L, res))
+            time_group("lossy", L, frac, group, res)
+        phase_read(img)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    for L in (8, 16):
-        frac, group = main_res["lossy_groups"][L]
-        label = "image group (lossy, rate-estimator floors)"
-        res = check_group(label, L, frac, group)
-        for k, v in res["errs"].items():
-            worst[k] = max(worst[k], v)
-        worst["fused_t1"] = max(worst["fused_t1"],
-                                check_chain("lossy", L, res))
-        time_group("lossy", L, frac, group, res)
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     counts = main_res["counts"]

@@ -1,6 +1,7 @@
 """The port's host tables, types and copied host modules equal the JAX
 package's: coding tables (ZC, SC, Qe), the MQ encoder, quantizer
 signaling, plan geometry and steps, and the verbatim back half."""
+import ast
 import dataclasses
 import os
 
@@ -108,11 +109,41 @@ def test_plan_and_step_map_equal(shape):
 
 @pytest.mark.parametrize("rel", [
     "codec/rate.py", "codec/t2.py", "codec/codestream.py", "codec/jp2.py",
-    "codec/tiff.py", "converters/base.py"])
+    "codec/tiff.py", "converters/base.py", "codec/decode/parser.py",
+    "codec/decode/index.py"])
 def test_host_module_is_verbatim_copy(rel):
     """The back half is copied, not re-implemented: same source text."""
     with open(os.path.join(REPO, "bucketeer_tpu_torch", rel)) as fh:
         got = fh.read()
     with open(os.path.join(REPO, "bucketeer_tpu", rel)) as fh:
         ref = fh.read()
+    assert got == ref
+
+
+def _code_without_docstrings(path: str, cls: str | None = None) -> str:
+    """ast dump of a module (or of its class ``cls``), docstrings
+    dropped."""
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body
+                and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    if cls is not None:
+        tree = next(n for n in tree.body
+                    if isinstance(n, ast.ClassDef) and n.name == cls)
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel,cls", [
+    ("codec/decode/t1_dec.py", None), ("codec/decode/errors.py", None),
+    ("codec/mq.py", "MQDecoder")])
+def test_decode_code_is_a_copy(rel, cls):
+    """The read path's host Tier-1, error types and MQ decoder are the
+    JAX package's code; only docstrings that name the other package's
+    modules differ."""
+    got, ref = (_code_without_docstrings(os.path.join(REPO, pkg, rel), cls)
+                for pkg in ("bucketeer_tpu_torch", "bucketeer_tpu"))
     assert got == ref

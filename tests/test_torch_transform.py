@@ -2,14 +2,19 @@
 the JAX package's jitted programs on the CPU, same numpy inputs."""
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from bucketeer_tpu.codec import dwt as j_dwt
 from bucketeer_tpu.codec import frontend as j_frontend
 from bucketeer_tpu.codec import pipeline as j_pipeline
+from bucketeer_tpu.codec import transforms as j_transforms
+from bucketeer_tpu_torch.codec import dwt as t_dwt
 from bucketeer_tpu_torch.codec import frontend as t_frontend
 from bucketeer_tpu_torch.codec import pipeline as t_pipeline
+from bucketeer_tpu_torch.codec import transforms as t_transforms
 
 
 def _batch(seed, b, h, w, c, bitdepth=8):
@@ -101,3 +106,97 @@ def test_frontend_mq_outputs(lossless, c):
         np.testing.assert_array_equal(
             tres.newsig[:, 0],
             ((idx != 0) & ((idx >> 1) == 0)).sum((1, 2)))
+
+
+# --- the inverse transforms (the read path) -------------------------------
+
+def _bands(seed, b, h, w, levels, reversible):
+    """Random subbands of an (h, w) tile: odd magnitudes of both signs
+    for the 5/3 (the arithmetic shifts' corner), floats for the 9/7."""
+    rng = np.random.default_rng(seed)
+    (lh, lw), shapes = t_dwt.subband_shapes(h, w, levels)
+
+    def band(shape):
+        if reversible:
+            mag = rng.integers(0, 600, (b,) + shape) * 2 + 1
+            sign = np.where(rng.random((b,) + shape) < 0.5, -1, 1)
+            return (mag * sign).astype(np.int32)
+        return rng.normal(0, 40, (b,) + shape).astype(np.float32)
+
+    ll = band((lh, lw))
+    bands = [{k: band(v) for k, v in lvl.items()} for lvl in shapes]
+    return ll, bands
+
+
+_J_INVERSE = jax.jit(j_dwt.dwt2d_inverse, static_argnums=2)
+
+
+def _both_inverse(ll, bands, reversible):
+    ref = np.asarray(_J_INVERSE(ll, bands, reversible))
+    got = t_dwt.dwt2d_inverse(
+        torch.as_tensor(ll),
+        [{k: torch.as_tensor(v) for k, v in lvl.items()} for lvl in bands],
+        reversible).numpy()
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    return ref, got
+
+
+@pytest.mark.parametrize("h,w,levels", [
+    (1, 1, 1), (1, 8, 2), (8, 1, 2), (7, 5, 3), (2, 3, 1), (9, 9, 3),
+    (4, 6, 2), (33, 17, 5), (64, 64, 4)])
+def test_inverse_53_identical(h, w, levels):
+    """5/3 synthesis is integer-exact against JAX, axes of 1-9 samples
+    included (the extension reflects more than once there)."""
+    ref, got = _both_inverse(*_bands(h * w + levels, 2, h, w, levels,
+                                     True), True)
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("h,w,levels", [
+    (1, 8, 2), (7, 5, 3), (9, 9, 3), (33, 17, 5), (64, 64, 4)])
+def test_inverse_97_close(h, w, levels):
+    """9/7 synthesis within rtol 1e-5 (of the output's scale) of JAX:
+    float32 steps in the same order, rounded by another compiler."""
+    ref, got = _both_inverse(*_bands(h + w + levels, 2, h, w, levels,
+                                     False), False)
+    np.testing.assert_allclose(got, ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+def test_forward_then_inverse_53_is_lossless():
+    x = np.random.default_rng(3).integers(-128, 128, (2, 37, 29),
+                                          dtype=np.int32)
+    ll, bands = t_dwt.dwt2d_forward(torch.as_tensor(x), 4, True)
+    np.testing.assert_array_equal(
+        t_dwt.dwt2d_inverse(ll, bands, True).numpy(), x)
+
+
+def test_interleave_with_empty_high_band():
+    for lo, hi in ((np.arange(2, dtype=np.int32).reshape(2, 1),
+                    np.zeros((2, 0), np.int32)),
+                   (np.arange(6, dtype=np.int32).reshape(2, 3),
+                    -np.arange(4, dtype=np.int32).reshape(2, 2) - 1)):
+        ref = np.asarray(j_dwt._interleave(lo, hi))
+        got = t_dwt._interleave(torch.as_tensor(lo),
+                                torch.as_tensor(hi)).numpy()
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_colour_inverses_against_jax():
+    rng = np.random.default_rng(5)
+    ycc = rng.integers(-300, 300, (4, 7, 3)).astype(np.int32)
+    np.testing.assert_array_equal(
+        t_transforms.rct_inverse(torch.as_tensor(ycc)).numpy(),
+        np.asarray(j_transforms.rct_inverse(ycc)))
+    rgb = rng.integers(-128, 128, (5, 6, 3)).astype(np.int32)
+    back = t_transforms.rct_inverse(
+        t_transforms.rct_forward(torch.as_tensor(rgb)))
+    np.testing.assert_array_equal(back.numpy(), rgb)
+    f = rng.normal(0, 60, (9, 11, 3)).astype(np.float32)
+    ref = np.asarray(j_transforms.ict_inverse(f))
+    got = t_transforms.ict_inverse(torch.as_tensor(f)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6,
+                               atol=1e-6 * np.abs(ref).max())
+    np.testing.assert_array_equal(
+        t_transforms.level_shift_inverse(torch.as_tensor(ycc), 8).numpy(),
+        np.asarray(j_transforms.level_shift_inverse(ycc, 8)))
