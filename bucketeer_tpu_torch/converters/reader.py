@@ -33,7 +33,9 @@ names kept) and ``decode.index_cache_{hits,misses,evictions}``; index
 builds are timed under the ``decode.index_build`` stage.
 
 Tier-2 parsing, the index build and the Tier-1 decode run on the host;
-the inverse transform runs on the reader's ``device``.
+the inverse transform (pixel reads) or the dequantizer (coefficient
+reads, :meth:`CudaReader.read_coefficients`) runs on the reader's
+``device``.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ from ..codec.decode import DecodeError, build_index, decode
 from ..codec.decode import probe as _probe
 from ..codec.decode import t1_dec
 from ..codec.decode.device import require_device
+from ..tensor import decode_to_coefficients
 from .base import ConverterError, output_path
 
 DEFAULT_CACHE_MB = 64
@@ -70,7 +73,10 @@ class _DecodeCache:
     """Bounded LRU of decoded arrays, sized in bytes. Entries are
     returned write-locked (``setflags(write=False)``) so a caller
     mutating a cached array fails loudly instead of corrupting every
-    later hit."""
+    later hit. Coefficient reads cache their CoefficientSet through
+    the same tier (``nbytes``-sized like an array); torch tensors have
+    no write lock, so its bands are shared with every later hit as
+    they are."""
 
     def __init__(self, max_bytes: int) -> None:
         self.max_bytes = max_bytes
@@ -92,7 +98,8 @@ class _DecodeCache:
         concurrent misses don't count each other's evictions)."""
         if arr.nbytes > self.max_bytes:
             return 0                    # bigger than the whole budget
-        arr.setflags(write=False)
+        if hasattr(arr, "setflags"):
+            arr.setflags(write=False)
         evicted_here = 0
         with self._lock:
             old = self._entries.pop(key, None)
@@ -186,8 +193,9 @@ class CudaReader:
     BUCKETEER_INDEX_CACHE_ENTRIES (default 64), 0 disables. ``metrics``:
     optional sink with ``record(stage, seconds, pixels=0, items=0)`` and
     ``count(name, n=1)`` for the per-tier cache counters and the index
-    build time. ``device``: where the inverse transform runs; "cuda"
-    without a usable CUDA device raises here. ``scheduler`` (admitted,
+    build time. ``device``: where the inverse transform (or the
+    coefficient dequantizer) runs; "cuda" without a usable CUDA device
+    raises here. ``scheduler`` (admitted,
     deadline-bound reads through the serving stack's scheduler) is not
     ported: anything but None raises NotImplementedError.
     """
@@ -283,15 +291,13 @@ class CudaReader:
                     self._index_builds.pop(ikey, None)
                 pending.set()
 
-    def read(self, source_path: str, reduce: int = 0,
-             layers: int | None = None,
-             region: tuple | None = None) -> np.ndarray:
-        """Decode a JP2/JPX file (or raw codestream) from disk;
-        ``region=(x, y, w, h)`` decodes only that window (bit-exact
-        crop of the full decode, served via the stream index).
-        Missing files raise ConverterError; malformed content raises
-        the decoder's typed DecodeError. Cache hits return a read-only
-        array — copy before mutating.
+    def _cached_read(self, source_path: str, reduce: int, layers,
+                     region, *, coefficients: bool):
+        """The shared tiered-cache machinery behind :meth:`read` and
+        :meth:`read_coefficients`: one protocol (file identity, region
+        clamp normalization with the probe-and-recheck on first touch,
+        per-tier counters), two products keyed apart by a trailing
+        ``True`` on the coefficient reads' keys.
 
         The tiers: file identity keys both; a region is clamp-normalized
         to the image, learning its dimensions from the main header on
@@ -304,9 +310,10 @@ class CudaReader:
                 f"derivative not found: {source_path}") from None
         region = _norm_region(region)
         fid = (source_path, st.st_mtime_ns, st.st_size)
+        suffix = (True,) if coefficients else ()
 
         def cache_key(region):
-            return fid + (reduce, layers, region)
+            return fid + (reduce, layers, region) + suffix
 
         dims = self._dims.get(fid) if region is not None else None
         if dims is not None:
@@ -343,24 +350,46 @@ class CudaReader:
             self._count("decode.cache_misses")
         idx = (self._stream_index(source_path, st, data)
                if region is not None else None)
-        out = decode(data, reduce=reduce, layers=layers, region=region,
-                     index=idx, device=self.device)
+        if coefficients:
+            out = decode_to_coefficients(data, region=region,
+                                         reduce=reduce, layers=layers,
+                                         index=idx, device=self.device)
+        else:
+            out = decode(data, reduce=reduce, layers=layers,
+                         region=region, index=idx, device=self.device)
         if self.cache is not None:
             evicted = self.cache.put(key, out)
             if evicted and self.metrics is not None:
                 self.metrics.count("decode.cache_evictions", evicted)
         return out
 
+    def read(self, source_path: str, reduce: int = 0,
+             layers: int | None = None,
+             region: tuple | None = None) -> np.ndarray:
+        """Decode a JP2/JPX file (or raw codestream) from disk;
+        ``region=(x, y, w, h)`` decodes only that window (bit-exact
+        crop of the full decode, served via the stream index).
+        Missing files raise ConverterError; malformed content raises
+        the decoder's typed DecodeError. Cache hits return a read-only
+        array — copy before mutating."""
+        return self._cached_read(source_path, reduce, layers, region,
+                                 coefficients=False)
+
     def read_coefficients(self, source_path: str, reduce: int = 0,
                           layers: int | None = None,
                           region: tuple | None = None):
-        """Compressed-domain reads (per-subband coefficient tensors) are
-        the tensor codec's, which is not ported: raises
-        NotImplementedError."""
-        raise NotImplementedError(
-            "CudaReader.read_coefficients: coefficient reads belong to the "
-            "tensor codec (ROADMAP Queue A.8), which is not ported; use "
-            "read() for pixels")
+        """Compressed-domain read: decode the derivative to per-subband
+        coefficient tensors on the reader's device
+        (``tensor.decode_to_coefficients``, a CoefficientSet) instead
+        of pixels, stopping after Tier-1 + dequantization. Served
+        through the same tiered cache as pixel reads — the key gains a
+        trailing ``True``, so a repeated read of the same region hits
+        the decoded-tile tier (same per-tier counters) and returns the
+        same set, whose tensors the caller must not mutate. Region
+        reads reuse the stream-index tier (single-flight builds)
+        exactly like :meth:`read`."""
+        return self._cached_read(source_path, reduce, layers, region,
+                                 coefficients=True)
 
     def reset_caches(self, tiles: bool = True,
                      index: bool = False) -> None:

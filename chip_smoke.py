@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (bucketeer_tpu_torch) on one
 NVIDIA GPU: the quickest proof that the port builds, is right and runs
-its two Tier-1 paths and its read path on the card.
+its two Tier-1 paths, its read path and its tensor codec on the card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -59,7 +59,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    (differing samples counted), the lossy tile's PSNR against the
    source, one stream index per file, and the device's busy time inside
    the inverse of two reads by torch.profiler;
-7. one JSON line with every kernel, then the card line and the result
+7. tensors and coefficients: (a) three 4096x4096 tensors made from
+   --seed on the card (int8 N(0, 2) clipped to +-7, and one N(0, 1) *
+   0.02 weight matrix in bfloat16 and in float32) through encode_tensor:
+   the device backend (the fused kernel) at the default 64-block chunk
+   and at chunk_blocks=4096, the replay backend (cxd_scan, host MQ
+   replay) once, each with the launch counts set to 0 just before and
+   read just after, wall time, MB/s, coded bytes, each launch by CUDA
+   events beside its bound, symbols, peak device memory; the three
+   blobs identical; (b) the oracle on each tensor's first 16 blocks per
+   limb: the card's blob of that slice (the warm-up) equals the full
+   blob's blocks, the host reference coder's blob and decodes to the
+   slice bit for bit; (c) coefficient reads of phase 5's derivatives
+   through CudaReader(device="cuda").read_coefficients (full reduce=4
+   lossless / reduce=3 lossy, the one-tile region at reduce 0 and at
+   those reduces), each cold then warm, with decode stages, MQ
+   decisions, the dequantizer by CUDA events and the cold time beside
+   phase 6's pixel read of the same window; region reads equal the crop
+   of the full read, every band is on the card and equals the same read
+   on the CPU. The oracle's host coder and the CPU reads run in worker
+   processes after every timed card run;
+8. one JSON line with every kernel, then the card line and the result
    line.
 """
 from __future__ import annotations
@@ -1018,13 +1038,18 @@ class ReadSink:
 
 
 class InverseTimer:
-    """CUDA events around each call of the decoder's device inverse (full
-    tiles and region windows): from before the host-to-device copy to
-    after the samples' ``.cpu()``, summed over the calls."""
+    """CUDA events around each call of a device stage, the functions
+    ``attrs`` of ``module`` as the read path calls them, summed over the
+    calls: the decoder's device inverse (full tiles and region windows,
+    from before the host-to-device copy to after the samples'
+    ``.cpu()``), or the coefficient dequantizer (from before its copy in
+    to the last band's result)."""
 
-    def __init__(self):
+    def __init__(self, module, attrs: tuple):
         self.ms = 0.0
         self.calls = 0
+        self.module = module
+        self.attrs = attrs
         self._saved = []
 
     def _wrap(self, fn):
@@ -1041,19 +1066,15 @@ class InverseTimer:
         return timed
 
     def __enter__(self):
-        from bucketeer_tpu_torch.codec.decode import decoder
-
-        for attr in ("run_inverse", "run_region_inverse"):
-            fn = getattr(decoder, attr)
+        for attr in self.attrs:
+            fn = getattr(self.module, attr)
             self._saved.append((attr, fn))
-            setattr(decoder, attr, self._wrap(fn))
+            setattr(self.module, attr, self._wrap(fn))
         return self
 
     def __exit__(self, *exc):
-        from bucketeer_tpu_torch.codec.decode import decoder
-
         for attr, fn in self._saved:
-            setattr(decoder, attr, fn)
+            setattr(self.module, attr, fn)
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -1088,7 +1109,8 @@ def phase_read(img) -> dict:
     time, the decode stages, the Tier-1 volume, the device inverse by
     CUDA events and the output's size; then the checks against the
     source, a larger window and the CPU."""
-    from bucketeer_tpu_torch.codec.decode import decode, set_metrics_sink
+    from bucketeer_tpu_torch.codec.decode import (decode, decoder,
+                                                  set_metrics_sink)
     from bucketeer_tpu_torch.converters import CudaReader
     from bucketeer_tpu_torch.converters.reader import derivative_path
 
@@ -1113,7 +1135,8 @@ def phase_read(img) -> dict:
     reset_counts()
     try:
         for kind, label, kw in reads:
-            with InverseTimer() as inv:
+            with InverseTimer(decoder, ("run_inverse",
+                                        "run_region_inverse")) as inv:
                 t0 = time.perf_counter()
                 cold = reader.read(paths[kind], **kw)
                 t_cold = time.perf_counter() - t0
@@ -1224,6 +1247,380 @@ def profile_inverse(reader, paths: dict, row: dict) -> tuple:
     return busy_ms, len(busy)
 
 
+# --- phase 7: tensors and coefficients -----------------------------------
+
+TENSOR_SIDE = 4096             # one 4096x4096 weight matrix per dtype
+ORACLE_BLOCKS = 16             # blocks per limb in the oracle slice
+
+
+def tensor_inputs(rng) -> dict:
+    """Phase 7's tensors on the card, from ``rng``: an int8 quantized
+    checkpoint shard (N(0, 2) rounded, clipped to +-7), and one
+    projection matrix of a 7B-class model, N(0, 1) * 0.02, in bfloat16
+    and in float32."""
+    n = TENSOR_SIDE
+    q = np.clip(np.rint(rng.normal(0.0, 2.0, (n, n))), -7, 7).astype(np.int8)
+    w = rng.standard_normal((n, n), dtype=np.float32) * np.float32(0.02)
+    return {"int8": torch.from_numpy(q).cuda(),
+            "bfloat16": torch.from_numpy(w).cuda().to(torch.bfloat16),
+            "float32": torch.from_numpy(w).cuda()}
+
+
+def tensor_bits(x) -> np.ndarray:
+    """A tensor's elements as unsigned bit patterns on the host (NaN-safe
+    equality)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().contiguous()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(np.uint16)
+        x = x.numpy()
+    return x.view(f"u{x.dtype.itemsize}")
+
+
+def from_bits(bits: np.ndarray, name: str):
+    if name == "bfloat16":
+        return torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    return bits.view(name)
+
+
+def tensor_encode(x, label: str, kernel: str, **kw) -> dict:
+    """One encode_tensor of ``x`` on the card, the launch counts set to 0
+    just before and read just after: wall time, the Tier-1 kernel's
+    launches by plane budget with CUDA events around each C launch and
+    their bounds, symbols, the host replay's time (replay backend) and
+    peak device memory."""
+    from bucketeer_tpu_torch.codec import cxd, t1_batch
+    from bucketeer_tpu_torch.kernels import cxd_scan, fused_t1
+    from bucketeer_tpu_torch.tensor import encode_tensor, set_metrics_sink
+
+    split = kernel == "cxd_scan"
+    real = getattr(cxd, kernel)
+    timer = LaunchTimer(cxd_scan if split else fused_t1, real,
+                        _scan_volume if split else _fused_volume)
+    replay = StageTimer([("host replay", t1_batch, "encode_cxd")],
+                        sync=False)
+    sink = ReadSink()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    setattr(cxd, kernel, timer)
+    set_metrics_sink(sink)
+    try:
+        with timer, replay:
+            t0 = time.perf_counter()
+            blob = encode_tensor(x, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        setattr(cxd, kernel, real)
+        set_metrics_sink(None)
+    counts = read_counts()
+    stages, counters = sink.take()
+    bound = scan_bound if split else fused_bound
+    by_l: dict = {}
+    for (start, stop, vol), b in zip(timer.launches, timer.bounds(bound)):
+        ms, bms, blocks = by_l.setdefault(vol[0], ([], [], []))
+        ms.append(start.elapsed_time(stop))
+        bms.append(b[0])
+        blocks.append(vol[1].shape[0])
+    raw = x.numel() * x.element_size()
+    syms = stages.get("tensor.encode_device", (0, 0, 0))[1]
+    kms = timer.kernel_ms()
+    per_l = "; ".join(
+        f"L={L}: {len(ms)} launches of {min(bl)}-{max(bl)} blocks, "
+        f"{sum(ms) / len(ms):.3f} ms/launch (min {min(ms):.3f}, max "
+        f"{max(ms):.3f}), bound {sum(bms) / len(bms):.6f} ms/launch"
+        for L, (ms, bms, bl) in sorted(by_l.items()))
+    line = (f"tensor {label}: wall {wall:.3f} s, {raw / wall / 1e6:.3f} "
+            f"MB/s, {raw} B -> {len(blob)} B (ratio {raw / len(blob):.4f}),"
+            f" {counters.get('tensor.encode_blocks', 0)} blocks; {kernel} "
+            f"{len(timer.launches)} launches, kernel {kms:.3f} ms total by "
+            f"CUDA events ({per_l}); {syms} symbols "
+            f"({syms / max(kms, 1e-9) / 1e6:.3f} G/s of kernel time); "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    if split:
+        line += (f"; host MQ replay {replay.seconds['host replay']:.3f} s "
+                 f"({t1_batch.default_threads()} threads)")
+    say(line + f"; launches in this run {counts}")
+    if not timer.launches or counts[kernel] != len(timer.launches):
+        fail(f"tensor {label}: {kernel} launched {counts[kernel]} times, "
+             f"{len(timer.launches)} timed")
+    want = {"fused_t1": not split, "cxd_scan": split, "mq_scan": False,
+            "probe": True}
+    for name, launched in want.items():
+        if (counts[name] > 0) != launched:
+            fail(f"tensor {label}: {name} launched {counts[name]} times")
+    return {"blob": blob, "wall": wall, "counts": counts, "by_l": by_l,
+            "kernel_ms": kms, "symbols": syms}
+
+
+def oracle_on_host(job) -> tuple:
+    """The oracle for one slice, in a worker process (one thread): the
+    host reference coder's blob of the slice, and the card's blob of it
+    decoded back, as bit patterns; with both times."""
+    from bucketeer_tpu_torch.tensor import decode_tensor, encode_tensor
+
+    name, bits, card_blob = job
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    host = encode_tensor(from_bits(bits, name), device="host")
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = tensor_bits(decode_tensor(card_blob))
+    return host, back, t_host, time.perf_counter() - t0
+
+
+def coeffs_on_host(job) -> tuple:
+    """CPU coefficient reads of one file in a worker process (one
+    thread): the bands of each read as numpy arrays, and the time."""
+    from bucketeer_tpu_torch.converters import CudaReader
+
+    path, reads = job
+    torch.set_num_threads(1)
+    reader = CudaReader(device="cpu")
+    t0 = time.perf_counter()
+    out = [reader.read_coefficients(path, **kw).to_host() for kw in reads]
+    return out, time.perf_counter() - t0
+
+
+def check_slice_blocks(label: str, slice_blob: bytes, full_blob: bytes):
+    """The slice's blocks equal the full blob's first ORACLE_BLOCKS
+    blocks of each limb."""
+    from bucketeer_tpu_torch.tensor import container
+
+    part, full = container.parse(slice_blob), container.parse(full_blob)
+    k = part.spec.n_limbs
+    nb = full.blocks_per_limb
+    for j in range(k):
+        for i in range(ORACLE_BLOCKS):
+            a = part.blocks[j * ORACLE_BLOCKS + i]
+            b = full.blocks[j * nb + i]
+            if (a.nbp, a.kept, a.data) != (b.nbp, b.kept, b.data) or \
+                    not np.array_equal(a.cums, b.cums):
+                fail(f"tensor {label}: slice block {i} of limb {j} differs "
+                     "from the full blob's")
+
+
+def phase_tensors(rng) -> dict:
+    """(a) the three 4096x4096 tensors through encode_tensor on the card:
+    the device backend at the default chunk and at chunk_blocks=4096,
+    the replay backend once, all byte-identical; (b) the slice of each,
+    its first ORACLE_BLOCKS blocks per limb: the card's blob (also the
+    warm-up) equals the full blob's blocks, and in worker processes the
+    host reference coder's blob, and its decode bit for bit."""
+    from bucketeer_tpu_torch.tensor import encode_tensor
+
+    xs = tensor_inputs(rng)
+    say("tensor: inputs on the card " + ", ".join(
+        f"{k} {tuple(v.shape)} ({v.numel() * v.element_size()} B)"
+        for k, v in xs.items()))
+    slices, launches = {}, {"fused_t1": 0, "cxd_scan": 0, "probe": 0}
+    rows = []
+    for name, x in xs.items():
+        part = x.reshape(-1)[:ORACLE_BLOCKS * 4096]
+        t0 = time.perf_counter()
+        slices[name] = (part, encode_tensor(part))
+        torch.cuda.synchronize()
+        say(f"tensor {name}: warm-up (the oracle slice, {part.numel()} "
+            f"elements) {time.perf_counter() - t0:.3f} s")
+        runs = {"chunk 64": tensor_encode(x, f"{name} device chunk 64",
+                                          "fused_t1"),
+                "chunk 4096": tensor_encode(x, f"{name} device chunk 4096",
+                                            "fused_t1", chunk_blocks=4096),
+                "replay": tensor_encode(x, f"{name} replay chunk 64",
+                                        "cxd_scan", device="replay")}
+        ref = runs["chunk 64"]["blob"]
+        for label, run in runs.items():
+            if label != "chunk 64":
+                same = run["blob"] == ref
+                say(f"tensor {name}: {label} blob identical to chunk 64's: "
+                    f"{same}")
+                if not same:
+                    fail(f"tensor {name}: the {label} blob differs")
+            for k in launches:
+                launches[k] += run["counts"][k]
+            rows.append({"dtype": name, "run": label, "wall_s": run["wall"],
+                         "bytes": len(run["blob"]),
+                         "kernel_ms": run["kernel_ms"],
+                         "symbols": run["symbols"],
+                         "launches": {L: len(v[0])
+                                      for L, v in run["by_l"].items()},
+                         "ms_per_launch": {L: sum(v[0]) / len(v[0])
+                                           for L, v in run["by_l"].items()},
+                         "bound_ms_per_launch": {
+                             L: sum(v[1]) / len(v[1])
+                             for L, v in run["by_l"].items()}})
+        check_slice_blocks(name, slices[name][1], ref)
+        say(f"tensor {name}: the slice's blocks equal the full blob's "
+            f"first {ORACLE_BLOCKS} blocks of each limb")
+    say("tensor table: " + json.dumps(rows))
+    return {"slices": slices, "launches": launches}
+
+
+def check_oracle(slices: dict, results: dict) -> None:
+    for name, (part, card_blob) in slices.items():
+        host, back, t_host, t_dec = results[name]
+        same = host == card_blob
+        exact = np.array_equal(back, tensor_bits(part))
+        say(f"tensor oracle {name}: host reference blob ({t_host:.2f} s on "
+            f"the host) identical to the card's: {same}; the card's blob "
+            f"decodes ({t_dec:.2f} s) to the slice bit for bit: {exact}")
+        if not (same and exact):
+            fail(f"tensor oracle {name}: host blob identical {same}, round "
+                 f"trip exact {exact}")
+
+
+COEFF_TILE = (1024, 1536, 512, 512)        # phase 6's one-tile window
+# (kind, label, read arguments, phase 6's read of the same window)
+COEFF_READS = [
+    ("lossless", "full reduce=4", {"reduce": 4}, "lossless thumbnail"),
+    ("lossy", "full reduce=3", {"reduce": 3}, "lossy thumbnail"),
+    ("lossless", "region", {"region": COEFF_TILE}, "lossless one tile"),
+    ("lossy", "region", {"region": COEFF_TILE}, "lossy one tile"),
+    ("lossless", "region reduce=4", {"region": COEFF_TILE, "reduce": 4},
+     None),
+    ("lossy", "region reduce=3", {"region": COEFF_TILE, "reduce": 3}, None)]
+
+
+def check_region_crop(label: str, region_set, full_set) -> None:
+    """A region read equals the crop of the full read at the same reduce,
+    at the windows the band_window rule gives."""
+    from bucketeer_tpu_torch.tensor.coeffs import (band_downsample,
+                                                   band_keys, band_window)
+
+    x, y, w, h = COEFF_TILE
+    s = 1 << full_set.reduce
+    for key in band_keys(full_set.levels):
+        d = band_downsample(key[0], full_set.levels)
+        fb = full_set.bands[key]
+        r0, r1 = band_window(y // s, -(-min(y + h, full_set.height) // s),
+                             d, fb.shape[1])
+        c0, c1 = band_window(x // s, -(-min(x + w, full_set.width) // s),
+                             d, fb.shape[2])
+        if region_set.windows[key] != (r0, r1, c0, c1) or not torch.equal(
+                region_set.bands[key], fb[:, r0:r1, c0:c1]):
+            fail(f"coeffs {label}: band {key} is not the crop of the full "
+                 "read")
+    say(f"coeffs check: {label} == crop of the full read by band_window "
+        f"({len(full_set.bands)} bands, tolerance 0)")
+
+
+def phase_coeffs(read_rows: list) -> dict:
+    """(c) coefficient reads of phase 5's derivatives through
+    CudaReader(device="cuda").read_coefficients, each cold then warm (one
+    tile-cache hit), the launch counts set to 0 just before and read just
+    after; then the region-crop checks, every band on the card, and the
+    same reads on the CPU (in worker processes) band for band."""
+    from bucketeer_tpu_torch.codec.decode import set_metrics_sink
+    from bucketeer_tpu_torch.converters import CudaReader
+    from bucketeer_tpu_torch.converters.reader import derivative_path
+    from bucketeer_tpu_torch.tensor import coeffs
+
+    paths = {kind: derivative_path(f"smoke-fused-{kind}")
+             for kind in ("lossless", "lossy")}
+    pixel = {row["read"]: row for row in read_rows}
+    sink = ReadSink()
+    reader = CudaReader(device="cuda", metrics=sink)
+    set_metrics_sink(sink)
+    out, rows = {}, []
+    reset_counts()
+    try:
+        for kind, label, kw, twin in COEFF_READS:
+            with InverseTimer(coeffs, ("run_dequant_inline",)) as dq:
+                t0 = time.perf_counter()
+                cold = reader.read_coefficients(paths[kind], **kw)
+                torch.cuda.synchronize()
+                t_cold = time.perf_counter() - t0
+            stages, counters = sink.take()
+            t0 = time.perf_counter()
+            warm = reader.read_coefficients(paths[kind], **kw)
+            t_warm = time.perf_counter() - t0
+            _, warm_counters = sink.take()
+            if warm is not cold or warm_counters != {"decode.cache_hits": 1}:
+                fail(f"coeffs {kind} {label}: the repeat was not one "
+                     f"tile-cache hit ({warm_counters})")
+            st = {k: v[0] for k, v in stages.items()}
+            dec = counters.get("decode.mq_symbols", 0)
+            row = {"read": f"{kind} {label}", "args": kw,
+                   "bands": len(cold.bands), "bytes": cold.nbytes,
+                   "cold_s": t_cold, "warm_s": t_warm, "stages": st,
+                   "dequant_event_ms": dq.ms, "decisions": dec,
+                   "blocks": counters.get("decode.blocks", 0),
+                   "pixel_cold_s": pixel[twin]["cold_s"] if twin else None}
+            rows.append(row)
+            out[kind, label] = cold
+            twin_txt = (f"; phase 6's pixel read of the same window "
+                        f"({twin}) {row['pixel_cold_s']:.3f} s cold"
+                        if twin else "")
+            say(f"coeffs {kind} {label} {kw}: {len(cold.bands)} bands, "
+                f"{cold.nbytes} B ({'int32' if cold.reversible else 'float32'}"
+                f"); cold {t_cold:.3f} s = t2_parse "
+                f"{st.get('decode.t2_parse', 0):.3f} + mq "
+                f"{st.get('decode.mq', 0):.3f} + coeff_dequant (host) "
+                f"{st.get('decode.coeff_dequant', 0):.4f} + index build "
+                f"{st.get('decode.index_build', 0):.3f} s; dequant by CUDA "
+                f"events {dq.ms:.3f} ms; {dec} MQ decisions in "
+                f"{row['blocks']} code-blocks "
+                f"({dec / max(st.get('decode.mq', 0), 1e-9) / 1e6:.3f} M/s);"
+                f" {cold.nbytes / t_cold / 1e6:.3f} MB/s of coefficients; "
+                f"warm hit {t_warm * 1e3:.4f} ms{twin_txt}")
+    finally:
+        set_metrics_sink(None)
+    counts = read_counts()
+    say(f"coeffs: kernel launches in the coefficient reads' run {counts} "
+        "(the read path runs none of the Tier-1 kernels)")
+    if any(counts.values()):
+        fail(f"the coefficient reads launched a Tier-1 kernel: {counts}")
+    for kind, r in (("lossless", 4), ("lossy", 3)):
+        check_region_crop(f"{kind} region reduce={r}",
+                          out[kind, f"region reduce={r}"],
+                          out[kind, f"full reduce={r}"])
+    devices = {str(t.device) for cs in out.values()
+               for t in cs.bands.values()}
+    say(f"coeffs check: every band on {sorted(devices)}")
+    if any(not d.startswith("cuda") for d in devices):
+        fail(f"coefficient bands off the card: {devices}")
+    say("coeffs table: " + json.dumps(rows))
+    return {"out": out, "paths": paths}
+
+
+def phase_host_checks(tensors: dict, coeff: dict) -> None:
+    """The oracle and the CPU coefficient reads in worker processes (one
+    thread each), after every timed card run."""
+    slices = tensors["slices"]
+    jobs = {}
+    spawn = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=len(slices) + 2,
+                             mp_context=spawn) as pool:
+        for name, (part, card_blob) in slices.items():
+            jobs[name] = pool.submit(oracle_on_host, (
+                name, tensor_bits(part), card_blob))
+        for kind in ("lossless", "lossy"):
+            kws = [kw for k, _, kw, _ in COEFF_READS if k == kind]
+            jobs[kind] = pool.submit(coeffs_on_host,
+                                     (coeff["paths"][kind], kws))
+        results = {k: f.result() for k, f in jobs.items()}
+    say(f"host checks: {len(jobs)} worker processes, "
+        f"{time.perf_counter() - t0:.2f} s wall")
+    check_oracle(slices, results)
+    for kind in ("lossless", "lossy"):
+        labels = [label for k, label, _, _ in COEFF_READS if k == kind]
+        cpu_sets, t_cpu = results[kind]
+        for label, cpu in zip(labels, cpu_sets):
+            card = coeff["out"][kind, label].to_host()
+            same = card.keys() == cpu.keys() and all(
+                card[k].dtype == cpu[k].dtype
+                and np.array_equal(card[k], cpu[k]) for k in card)
+            say(f"coeffs check: {kind} {label}, card == CPU band for band: "
+                f"{same} (tolerance 0)")
+            if not same:
+                fail(f"coeffs {kind} {label}: the card's bands differ from "
+                     "the CPU's")
+        say(f"coeffs: the {kind} reads on the CPU took {t_cpu:.2f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -1253,22 +1650,31 @@ def main() -> None:
             worst["fused_t1"] = max(worst["fused_t1"],
                                     check_chain("lossy", L, res))
             time_group("lossy", L, frac, group, res)
-        phase_read(img)
+        read_res = phase_read(img)
+        t7 = time.perf_counter()
+        tensors = phase_tensors(rng)
+        coeff = phase_coeffs(read_res["rows"])
+        phase_host_checks(tensors, coeff)
+        say(f"phase 7 (tensors and coefficients) "
+            f"{time.perf_counter() - t7:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     counts = main_res["counts"]
-    launches = {"fused_t1": counts["fused"]["fused_t1"],
-                "cxd_scan": counts["split"]["cxd_scan"],
-                "probe": counts["fused"]["probe"] + counts["split"]["probe"],
+    tl = tensors["launches"]
+    launches = {"fused_t1": counts["fused"]["fused_t1"] + tl["fused_t1"],
+                "cxd_scan": counts["split"]["cxd_scan"] + tl["cxd_scan"],
+                "probe": (counts["fused"]["probe"] + counts["split"]["probe"]
+                          + tl["probe"]),
                 # No encode path runs mq_scan (the JAX package has no call
                 # site for mq_pallas either): its count is the whole run's,
                 # every launch a check against plain or fused_t1.
                 "mq_scan": (RUN_LAUNCHES.get("mq_scan", 0)
                             + libraries()["mq_scan"].launches)}
-    paths = {"fused_t1": "fused main path", "cxd_scan": "split main path",
-             "probe": "first launch of each main path",
+    paths = {"fused_t1": "fused main path; tensor codec, device backend",
+             "cxd_scan": "split main path; tensor codec, replay backend",
+             "probe": "first launch of each main path and tensor encode",
              "mq_scan": "none: the oracle surface; launches of the whole "
                         "run's kernel checks"}
     source = {"fused_t1": "fused_t1.cu", "cxd_scan": "cxd_scan.cu",

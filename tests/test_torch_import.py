@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: importing every module of
-bucketeer_tpu_torch loads neither JAX nor anything of bucketeer_tpu."""
+bucketeer_tpu_torch loads neither JAX nor anything of bucketeer_tpu, and
+no source of the port names ml_dtypes (which the card's machine does not
+have)."""
 import json
 import os
 import subprocess
@@ -38,10 +40,16 @@ def test_port_imports_no_jax_and_no_jax_package():
             "bucketeer_tpu_torch.codec.decode.device",
             "bucketeer_tpu_torch.codec.decode.parser",
             "bucketeer_tpu_torch.converters.reader",
-            "bucketeer_tpu_torch.converters.cuda"} <= set(res["modules"])
+            "bucketeer_tpu_torch.converters.cuda",
+            "bucketeer_tpu_torch.tensor",
+            "bucketeer_tpu_torch.tensor.planes",
+            "bucketeer_tpu_torch.tensor.container",
+            "bucketeer_tpu_torch.tensor.codec",
+            "bucketeer_tpu_torch.tensor.coeffs"} <= set(res["modules"])
     bad = [m for m in res["new"]
            if m == "jax" or m.startswith(("jax.", "jaxlib"))
-           or m == "bucketeer_tpu" or m.startswith("bucketeer_tpu.")]
+           or m == "bucketeer_tpu" or m.startswith("bucketeer_tpu.")
+           or m == "ml_dtypes" or m.startswith("ml_dtypes.")]
     assert bad == []
 
 
@@ -66,6 +74,11 @@ def test_port_sources_name_no_jax_import():
             "bucketeer_tpu_torch/codec/encoder.py",
             "bucketeer_tpu_torch/codec/decode/decoder.py",
             "bucketeer_tpu_torch/converters/reader.py",
+            "bucketeer_tpu_torch/tensor/__init__.py",
+            "bucketeer_tpu_torch/tensor/planes.py",
+            "bucketeer_tpu_torch/tensor/container.py",
+            "bucketeer_tpu_torch/tensor/codec.py",
+            "bucketeer_tpu_torch/tensor/coeffs.py",
             "chip_smoke.py"} <= rel
     offenders = []
     for path in paths:
@@ -78,4 +91,16 @@ def test_port_sources_name_no_jax_import():
                                  "from bucketeer_tpu.",
                                  "import bucketeer_tpu.")):
                     offenders.append(f"{path}:{n}: {s}")
+    assert offenders == []
+
+
+def test_port_sources_name_no_ml_dtypes():
+    """bfloat16 is torch.bfloat16 in the port: no source line of the port
+    or of chip_smoke.py names ml_dtypes, in code or in prose."""
+    offenders = []
+    for path in _port_sources():
+        with open(path) as fh:
+            for n, line in enumerate(fh, 1):
+                if "ml_dtypes" in line:
+                    offenders.append(f"{path}:{n}: {line.strip()}")
     assert offenders == []

@@ -2,7 +2,7 @@
 hit/miss counters, byte-budget eviction, file-identity invalidation,
 read-only entries, clamp-normalized region keys, the single-flight
 stream-index tier; and what the port does not serve yet (the scheduler
-hook, coefficient reads) or cannot (a card without CUDA)."""
+hook) or cannot (a card without CUDA)."""
 import dataclasses
 import os
 import threading
@@ -413,8 +413,11 @@ def test_unported_surfaces_raise(tmp_path):
     path, _ = _write_jp2(tmp_path, "u.jp2")
     with pytest.raises(NotImplementedError, match="scheduler"):
         CudaReader(device="cpu", scheduler=object())
-    with pytest.raises(NotImplementedError, match="tensor codec"):
-        _reader().read_coefficients(path)
+    # Coefficient reads are served now (tests/test_torch_coeffs.py holds
+    # them against the JAX package); only the scheduler hook is unported.
+    cs = _reader().read_coefficients(path)
+    assert cs.reversible and all(t.device.type == "cpu"
+                                 for t in cs.bands.values())
 
 
 def test_card_without_cuda_raises(monkeypatch):
