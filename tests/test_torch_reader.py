@@ -20,6 +20,7 @@ from bucketeer_tpu_torch.codec.decode import DecodeError, t1_dec
 from bucketeer_tpu_torch.converters import ConverterError, CudaReader
 from bucketeer_tpu_torch.converters import reader as reader_mod
 from bucketeer_tpu_torch.converters.reader import _DecodeCache, _IndexCache
+from bucketeer_tpu_torch.tensor import decode_to_coefficients
 
 
 def _reader(**kw):
@@ -101,6 +102,45 @@ def test_cached_arrays_are_read_only(tmp_path):
     cached = reader.read(path)
     with pytest.raises(ValueError):
         cached[0, 0] = 0
+
+
+def _same_bands(a, b) -> bool:
+    return list(a.bands) == list(b.bands) and all(
+        torch.equal(a.bands[k], b.bands[k]) for k in a.bands)
+
+
+@pytest.mark.parametrize("changed", ["hit", "miss"])
+def test_coefficient_read_changed_in_place_leaves_later_reads(tmp_path,
+                                                             changed):
+    """Changing a coefficient read's bands in place, the miss's own
+    result or a cache hit's, changes no later read: the next hit still
+    equals a fresh decode_to_coefficients (ROADMAP C.6)."""
+    path, _ = _write_jp2(tmp_path, "k.jp2")
+    with open(path, "rb") as fh:
+        fresh = decode_to_coefficients(fh.read(), device="cpu")
+    sink = Metrics()
+    reader = _reader(cache_mb=4, metrics=sink)
+    mine = reader.read_coefficients(path)
+    if changed == "hit":
+        mine = reader.read_coefficients(path)
+    for band in mine.bands.values():
+        band.add_(1000)
+    later = reader.read_coefficients(path)
+    assert sink.report()["counters"]["decode.cache_misses"] == 1
+    assert _same_bands(later, fresh) and not _same_bands(mine, fresh)
+
+
+def test_coefficient_reads_share_no_storage(tmp_path):
+    """A miss and two hits of one key are three sets whose bands share
+    no storage with each other."""
+    path, _ = _write_jp2(tmp_path, "s.jp2")
+    reader = _reader(cache_mb=4)
+    sets = [reader.read_coefficients(path) for _ in range(3)]
+    assert len({id(cs) for cs in sets}) == 3
+    for key in sets[0].bands:
+        ptrs = {cs.bands[key].untyped_storage().data_ptr() for cs in sets}
+        assert len(ptrs) == 3, key
+    assert _same_bands(sets[1], sets[0]) and _same_bands(sets[2], sets[0])
 
 
 def test_cache_disabled_with_zero_budget(tmp_path):
