@@ -22,6 +22,7 @@ or floored away) are in no group and cost nothing.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -170,10 +171,18 @@ def assemble_mq_blocks(nbps: np.ndarray, floors: np.ndarray,
 
 @dataclass
 class MqDeviceResult:
-    """One chunk's device Tier-1 outcome."""
+    """One chunk's device Tier-1 outcome, with the stage times the
+    encoder's metrics report, in host-clock seconds as the JAX package
+    keeps them. The fused kernel cannot split context modeling from MQ
+    coding: ``cxd_s`` carries the fused launches (the launch and the
+    small cursor/snapshot copies, whose ``.cpu()`` waits for the card)
+    and ``mq_s`` the byte-segment fetch."""
     blocks: list               # [t1.CodedBlock]
     total_syms: int
     total_bytes: int
+    cxd_s: float               # fused launches and their small copies
+    mq_s: float                # byte-segment fetch
+    host_s: float              # host assembly (the entire host share)
 
 
 def run_device_mq(blocks_dev: torch.Tensor, nbps: np.ndarray,
@@ -186,13 +195,16 @@ def run_device_mq(blocks_dev: torch.Tensor, nbps: np.ndarray,
     n = len(nbps)
     out = [t1.CodedBlock(b"", 0) for _ in range(n)]
     tot_syms = tot_bytes = 0
+    t_cxd = t_mq = t_host = 0.0
     for L, idxs, args in _group_launches(blocks_dev, nbps, floors,
                                          bandnames, hs, ws):
         cap = mq_capacity(max_syms(L))
+        t0 = time.perf_counter()
         rows, snaps, dlen, dh, dl, cur, curb = fused_t1(L, frac_bits,
                                                         *args)
         snaps_h, dlen_h, dh_h, dl_h, cur_h, curb_h = (
             x.cpu().numpy() for x in (snaps, dlen, dh, dl, cur, curb))
+        t_cxd += time.perf_counter() - t0
         _check_sym_overflow(int(cur_h.max()), L)
         if int(curb_h.max()) > cap:
             raise ValueError(
@@ -202,16 +214,20 @@ def run_device_mq(blocks_dev: torch.Tensor, nbps: np.ndarray,
         dist = (dh_h.astype(np.float64) + dl_h.astype(np.float64)) / 4.0
         # Only the rows each live block filled (its segment includes the
         # leading dummy pre-byte).
+        t0 = time.perf_counter()
         payload, row_offs = _fetch_block_rows(
             rows, -(-(dlen_h + 1) // MQ_ROW_BYTES) * (dlen_h > 0),
             cap // MQ_ROW_BYTES, MQ_ROW_BYTES)
+        t_mq += time.perf_counter() - t0
+        t0 = time.perf_counter()
         blocks_g = assemble_mq_blocks(nbps[idxs], floors[idxs], snaps_h,
                                       dlen_h, dist, payload, row_offs)
         for k, i in enumerate(idxs):
             out[int(i)] = blocks_g[k]
+        t_host += time.perf_counter() - t0
         tot_syms += int(cur_h.sum())
         tot_bytes += int(dlen_h.sum())
-    return MqDeviceResult(out, tot_syms, tot_bytes)
+    return MqDeviceResult(out, tot_syms, tot_bytes, t_cxd, t_mq, t_host)
 
 
 # --- the CX/D split: device scan, host MQ replay -------------------------
@@ -256,6 +272,7 @@ class CxdStreams:
     pass_nsyms: np.ndarray     # int32 symbols in this pass
     pass_dists: np.ndarray     # float64 exact distortion reduction
     total_syms: int
+    device_s: float = 0.0      # host-clock seconds of run_cxd's call
 
 
 def pass_tables(nbps: np.ndarray, floors: np.ndarray, counts: np.ndarray,
@@ -324,7 +341,11 @@ def run_cxd(blocks_dev: torch.Tensor, nbps: np.ndarray, floors: np.ndarray,
     """The CX/D scan for one chunk on the blocks' device and its streams
     on the host: the scan per Mb-clamped launch group, the symbols
     packed six bits each on the device, and only the packed rows each
-    live block filled fetched. ``blocks_dev``: (n, 64, 64) int32."""
+    live block filled fetched. ``blocks_dev``: (n, 64, 64) int32. The
+    streams' ``device_s`` is the call's host-clock seconds (the launches,
+    the copies, whose ``.cpu()`` waits for the card, and the pass
+    tables), the JAX encoder's ``cxd`` segment."""
+    t_call = time.perf_counter()
     n = len(nbps)
     empty_rows = np.zeros((0, PACKED_ROW_BYTES), np.uint8)
     per_rows = [empty_rows] * n
@@ -367,4 +388,4 @@ def run_cxd(blocks_dev: torch.Tensor, nbps: np.ndarray, floors: np.ndarray,
                       np.concatenate(per_planes) if n else _EMPTY_I32,
                       np.concatenate(per_nsyms) if n else _EMPTY_I32,
                       np.concatenate(per_dists) if n else _EMPTY_F64,
-                      total)
+                      total, time.perf_counter() - t_call)

@@ -18,6 +18,13 @@ each chunk's front-end and Tier-1 work is queued on the device's stream
 and the host waits only where it needs a result (the stats, then the
 finished byte segments or symbol streams).
 
+A scheduler (engine/scheduler.py) routes an encode through shared
+resources by installing :func:`pipeline_services` around it: the
+front-end dispatch goes to its device pool, the split's host replay to
+its shared host pool, the fused Tier-1 stage to its pipeline-stage hook,
+and its deadline check is polled at each chunk dispatch. With no
+services installed the encoder runs its own private pipeline.
+
 The full structural recipe of the reference's Kakadu invocation
 (``Clevels=6 Clayers=6 Cprecincts={256,256},{256,256},{128,128}
 Stiles={512,512} Corder=RPCL ORGgen_plt=yes ORGtparts=R Cblk={64,64}
@@ -26,13 +33,17 @@ Cuse_sop=yes Cuse_eph=yes``, lossy ``-rate 3``) is available via
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
+import time
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import obs
 from . import codestream as cs
 from . import cxd as cxd_mod
 from . import frontend
@@ -48,6 +59,56 @@ CBLK_EXP = 6  # 64x64 code-blocks (reference recipe Cblk={64,64})
 CHUNK_TILES = 8     # same-shape tiles per front-end batch
 OVERLAP_DEPTH = 2   # queued-but-unresolved chunks
 HOST_QUEUE_DEPTH = 2    # unfinished host replays before back-pressure
+
+# Optional per-stage timing/counter sink (server.metrics.Metrics): the
+# device-dispatch and host-coding segments of every encode, its Tier-1
+# segments and its rate-control counters.
+_metrics_sink = None
+
+
+def set_metrics_sink(sink) -> None:
+    """Install a metrics sink with ``record(stage, seconds, pixels=0,
+    items=0)``, ``record_overlap(stage, device_s, host_s, wall_s,
+    pixels=0)`` and ``count(name, n=1)`` (server.metrics.Metrics). None
+    disables."""
+    global _metrics_sink
+    _metrics_sink = sink
+
+
+# --- scheduler seam -------------------------------------------------------
+# A scheduler installs its services thread-locally around the encode
+# call, so nothing about encode_array's signature or its per-request
+# pipeline logic changes.
+
+_SERVICES = threading.local()
+
+
+@dataclass
+class _PipelineServices:
+    dispatch: object          # callable(plan, tiles, mode=...) -> pending
+    pool: object              # shared executor; NOT shut down per encode
+    check: object = None      # callable raising on deadline/cancel
+    t1_launch: object = None  # callable(stage_fn, payload) -> stage
+                              # result; the scheduler's pipeline-stage
+                              # hook for the fused Tier-1 (None = run
+                              # inline on this thread)
+
+
+def current_services() -> _PipelineServices | None:
+    return getattr(_SERVICES, "svc", None)
+
+
+@contextlib.contextmanager
+def pipeline_services(dispatch=None, pool=None, check=None,
+                      t1_launch=None):
+    """Install scheduler-owned pipeline services for encodes running on
+    this thread (the scheduler wraps each admitted request in this)."""
+    prev = getattr(_SERVICES, "svc", None)
+    _SERVICES.svc = _PipelineServices(dispatch, pool, check, t1_launch)
+    try:
+        yield
+    finally:
+        _SERVICES.svc = prev
 
 
 @dataclass
@@ -627,48 +688,103 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
     chunks, tile_records, qcd_values = _build_chunks(
         groups, plans, used_mct, gains, weight_of_slot, norms)
     frac_bits = 0 if params.lossless else FRAC_BITS
+    mode = "mq" if use_mq else "cxd"
     floor_lam = [0.0]
+    tm = {"device": 0.0, "host": 0.0, "cxd": 0.0, "mq": 0.0,
+          "mq_dev": 0.0}
+    # A shared scheduler pool may run two of this encode's replays at
+    # once: serialize the timing accumulator so segments stay exact.
+    tm_lock = threading.Lock()
+    coded = [0, 0]      # symbols, MQ bytes over every Tier-1 attempt
+    t_wall0 = time.perf_counter()
+    svc = current_services()
+
+    def _tm_add(key: str, dt: float) -> None:
+        with tm_lock:
+            tm[key] += dt
 
     def dispatch(chunk: _Chunk) -> None:
-        batch = np.stack([img[y0:y0 + chunk.plan.tile_h,
-                              x0:x0 + chunk.plan.tile_w]
-                          for _, y0, x0 in chunk.members])
-        chunk.pending = frontend.dispatch_frontend(chunk.plan, batch,
-                                                   device=device)
+        if svc is not None and svc.check is not None:
+            svc.check()
+        t0 = time.perf_counter()
+        with obs.span("encode.dispatch", tiles=len(chunk.members)):
+            batch = np.stack([img[y0:y0 + chunk.plan.tile_h,
+                                  x0:x0 + chunk.plan.tile_w]
+                              for _, y0, x0 in chunk.members])
+            if svc is not None and svc.dispatch is not None:
+                chunk.pending = svc.dispatch(chunk.plan, batch, mode=mode)
+            else:
+                chunk.pending = frontend.dispatch_frontend(
+                    chunk.plan, batch, device=device)
+        _tm_add("device", time.perf_counter() - t0)
 
     def resolve(chunk: _Chunk) -> None:
-        chunk.fres = chunk.pending.resolve_stats()
+        t0 = time.perf_counter()
+        with obs.span("encode.resolve_stats"):
+            chunk.fres = chunk.pending.resolve_stats()
         chunk.pending = None
+        _tm_add("device", time.perf_counter() - t0)
 
     def host_replay(chunk: _Chunk, streams) -> cxd_mod.MqDeviceResult:
         """The split's host half: MQ replay of the device's symbols."""
-        blocks = t1_batch.encode_cxd(streams)
-        if not params.lossless:
-            _correct_distortions(blocks, chunk.fres)
+        t0 = time.perf_counter()
+        with obs.span("encode.mq_replay", blocks=len(chunk.dests)):
+            blocks = t1_batch.encode_cxd(streams)
+            if not params.lossless:
+                _correct_distortions(blocks, chunk.fres)
+        dt = time.perf_counter() - t0
+        _tm_add("host", dt)
+        _tm_add("mq", dt)
         return cxd_mod.MqDeviceResult(blocks, streams.total_syms,
-                                      sum(len(b.data) for b in blocks))
+                                      sum(len(b.data) for b in blocks),
+                                      0.0, 0.0, dt)
 
-    def tier1(chunk: _Chunk, floors: np.ndarray, release: bool,
+    def tier1(pool, chunk: _Chunk, floors: np.ndarray, release: bool,
               futs: list) -> None:
         """Queue one chunk's Tier-1 result onto ``futs``. The fused path
-        finishes here; the split's host replay runs on the replay worker
+        finishes here; the split's host replay runs on the host pool
         while the caller goes on to the next chunk's device work."""
-        args = (chunk.fres.blocks, chunk.fres.nbps, floors,
-                chunk.bandnames, chunk.hs, chunk.ws, frac_bits)
+        args = (chunk.fres.nbps, floors, chunk.bandnames, chunk.hs,
+                chunk.ws, frac_bits)
         if use_mq:
-            res = cxd_mod.run_device_mq(*args)
+            def t1_stage(blocks_dev):
+                return cxd_mod.run_device_mq(blocks_dev, *args)
+
+            with obs.span("encode.t1_device", blocks=len(chunk.dests)):
+                if svc is not None and svc.t1_launch is not None:
+                    # Pipeline-stage mapping: the scheduler stages the
+                    # fused kernel onto its Tier-1 device subset; the
+                    # span covers staging wait and execution.
+                    res = svc.t1_launch(t1_stage, chunk.fres.blocks)
+                else:
+                    res = t1_stage(chunk.fres.blocks)
+            _tm_add("device", res.cxd_s + res.mq_s)
+            _tm_add("cxd", res.cxd_s)
+            _tm_add("mq_dev", res.mq_s)
+            with tm_lock:
+                coded[0] += res.total_syms
+                coded[1] += res.total_bytes
+            th0 = time.perf_counter()
             if not params.lossless:
                 _correct_distortions(res.blocks, chunk.fres)
+            # The whole host share: assembly + distortion correction.
+            _tm_add("host", res.host_s + time.perf_counter() - th0)
             fut: Future = Future()
             fut.set_result(res)
         else:
-            streams = cxd_mod.run_cxd(*args)
+            with obs.span("encode.cxd_device", blocks=len(chunk.dests)):
+                streams = cxd_mod.run_cxd(chunk.fres.blocks, *args)
+            _tm_add("device", streams.device_s)
+            _tm_add("cxd", streams.device_s)
+            with tm_lock:
+                coded[0] += streams.total_syms
             # Back-pressure: at most HOST_QUEUE_DEPTH unfinished replays,
             # so the fetched symbol payloads stay bounded.
             live = [f for f in futs if not f.done()]
             if len(live) > HOST_QUEUE_DEPTH:
                 live[0].result()
-            fut = replay_pool.submit(host_replay, chunk, streams)
+            # obs.bind: pool threads do not inherit the trace context.
+            fut = pool.submit(obs.bind(host_replay), chunk, streams)
         if release:
             chunk.fres.blocks = None     # free the device staging buffer
         futs.append(fut)
@@ -695,11 +811,16 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
             ofs += c.fres.n_blocks
         return out
 
-    # The split's host replay runs on one worker beside the main thread
-    # (ctypes releases the interpreter lock for the native replay);
-    # results are collected in submission order, so the output is the
-    # same as a serial replay's.
-    with ThreadPoolExecutor(max_workers=1) as replay_pool:
+    # The split's host replay runs on the scheduler's shared pool when
+    # one is installed (never shut down here), else on one private
+    # worker beside the main thread (ctypes releases the interpreter
+    # lock for the native replay). Results are collected in submission
+    # order either way, so the output is the same as a serial replay's.
+    if svc is not None and svc.pool is not None:
+        pool_cm = contextlib.nullcontext(svc.pool)
+    else:
+        pool_cm = ThreadPoolExecutor(max_workers=1)
+    with pool_cm as pool:
         futs: list = []
         if target is None:
             # Streaming: floors are all zero, so each chunk flows
@@ -714,8 +835,8 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
                                or len(staged) >= OVERLAP_DEPTH):
                     c = staged.popleft()
                     resolve(c)
-                    tier1(c, np.zeros(c.fres.n_blocks, np.int32), True,
-                          futs)
+                    tier1(pool, c, np.zeros(c.fres.n_blocks, np.int32),
+                          True, futs)
             results = [f.result() for f in futs]
         else:
             # Rate-targeted: floors need global stats, so every chunk's
@@ -728,10 +849,12 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
                 resolve(chunk)
             margin = 3.0
             for attempt in range(3):
+                if attempt and _metrics_sink is not None:
+                    _metrics_sink.count("encode.floor_reruns")
                 floors_by_chunk = chunk_floors(margin)
                 futs = []
                 for chunk, floors in zip(chunks, floors_by_chunk):
-                    tier1(chunk, floors, False, futs)
+                    tier1(pool, chunk, floors, False, futs)
                 results = [f.result() for f in futs]
                 avail = sum(len(b.data) for res in results
                             for b in res.blocks)
@@ -748,32 +871,65 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
                                                   target * 0.96)
                     if realized >= floor_lam[0] / 4.0:
                         break
+                    if _metrics_sink is not None:
+                        _metrics_sink.count("encode.floor_slope_retries")
                 # Estimator undershoot: lower the floors and redo — PCRD
                 # needs enough passes to spend the budget.
                 margin *= 4.0
 
+    if _metrics_sink is not None:
+        _record_encode(use_mq, tm, time.perf_counter() - t_wall0, h * w,
+                       *coded)
+
     all_coded: list = []
     block_weights: list = []
     assign_index: dict = {}     # id(CodedBlock) -> index
-    for chunk, res in zip(chunks, results):
-        for (band, cy, cx), blk, bw in zip(chunk.dests, res.blocks,
-                                           chunk.wts):
-            if blk.n_bitplanes > band.q.n_bitplanes:
-                raise ValueError(
-                    f"block bitplanes {blk.n_bitplanes} exceed Mb "
-                    f"{band.q.n_bitplanes} in {band.name}")
-            band.blocks[(cy, cx)] = blk
-            assign_index[id(blk)] = len(all_coded)
-            all_coded.append(blk)
-            block_weights.append(bw)
-        chunk.fres = None     # release stats + any remaining blocks
+    with obs.span("encode.reassemble", chunks=len(chunks)):
+        for chunk, res in zip(chunks, results):
+            for (band, cy, cx), blk, bw in zip(chunk.dests, res.blocks,
+                                               chunk.wts):
+                if blk.n_bitplanes > band.q.n_bitplanes:
+                    raise ValueError(
+                        f"block bitplanes {blk.n_bitplanes} exceed Mb "
+                        f"{band.q.n_bitplanes} in {band.name}")
+                band.blocks[(cy, cx)] = blk
+                assign_index[id(blk)] = len(all_coded)
+                all_coded.append(blk)
+                block_weights.append(bw)
+            chunk.fres = None     # release stats + any remaining blocks
     if stats is not None:
         stats["blocks"] = len(all_coded)
         stats["symbols"] = sum(res.total_syms for res in results)
         stats["bytes"] = sum(res.total_bytes for res in results)
-    return _finish(img, params, tile_records, all_coded, block_weights,
-                   assign_index, qcd_values, used_mct, bitdepth, n_comps,
-                   levels, tile, target)
+    with obs.span("encode.tier2"):
+        return _finish(img, params, tile_records, all_coded,
+                       block_weights, assign_index, qcd_values, used_mct,
+                       bitdepth, n_comps, levels, tile, target)
+
+
+def _record_encode(use_mq: bool, tm: dict, wall_s: float, pixels: int,
+                   n_syms: int, n_mq_bytes: int) -> None:
+    """One encode's segments on the metrics sink, under the JAX
+    package's stage and counter names."""
+    sink = _metrics_sink
+    sink.record("encode.device_dispatch", tm["device"], pixels=pixels)
+    sink.record("encode.host_code", tm["host"], pixels=pixels)
+    sink.record("encode.cxd_device", tm["cxd"], pixels=pixels)
+    if use_mq:
+        # The fused Tier-1's segments: the launches, the byte-segment
+        # fetch (items=bytes) and their sum (items=symbols).
+        sink.record("encode.mq_device", tm["mq_dev"], pixels=pixels,
+                    items=n_mq_bytes)
+        sink.record("encode.t1_device_total", tm["cxd"] + tm["mq_dev"],
+                    pixels=pixels, items=n_syms)
+        sink.count("encode.mq_device_bytes", n_mq_bytes)
+    else:
+        # The split's host MQ replay, with its symbol throughput.
+        sink.record("encode.mq_replay", tm["mq"], pixels=pixels,
+                    items=n_syms)
+    sink.count("encode.cxd_symbols", n_syms)
+    sink.record_overlap("encode", tm["device"], tm["host"], wall_s,
+                        pixels=pixels)
 
 
 def _finish(img: np.ndarray, params: EncodeParams, tile_records: list,
@@ -825,6 +981,10 @@ def _finish(img: np.ndarray, params: EncodeParams, tile_records: list,
         if abs(err) <= 0.02 * target:
             break
         budget = max(1024.0, budget - err)
+        # Each extra Tier-2 rebuild multiplies worst-case encode cost;
+        # count them so adversarial-content blowups are observable.
+        if _metrics_sink is not None:
+            _metrics_sink.count("encode.t2_rebuilds")
         out = build(budget)
     return out
 

@@ -8,22 +8,29 @@ Cuse_eph=yes``; lossless = reversible 5/3 + RCT, lossy = irreversible
 from __future__ import annotations
 
 import os
+import threading
 
+from .. import obs
 from ..codec import tiff
-from ..codec.encoder import EncodeParams, encode_jp2
+from ..codec.encoder import EncodeParams
+from ..engine import scheduler as sched_mod
 from .base import Conversion, ConverterError, output_path
 
 LOSSY_RATE = 3.0    # reference: -rate 3 (KakaduConverter.java:43)
 
 
 class CudaConverter:
-    """JPEG 2000 encoding on one CUDA device (or, for tests, the CPU)."""
+    """JPEG 2000 encoding on one CUDA device (or, for tests, the CPU).
+    Every encode is one admitted request of a scheduler
+    (engine/scheduler.py): ``scheduler``, else the process-wide one for
+    ``device``'s type (``get_scheduler``)."""
 
     name = "CUDA"
 
     def __init__(self, device="cuda", device_cxd: bool | None = None,
                  device_mq: bool | None = None,
-                 lossy_rate: float = LOSSY_RATE, jpx: bool = True) -> None:
+                 lossy_rate: float = LOSSY_RATE, jpx: bool = True,
+                 scheduler=None) -> None:
         self.device = device
         # Tier-1 placement, passed into EncodeParams as the JAX
         # package's TpuConverter does: device_mq=False with
@@ -33,22 +40,20 @@ class CudaConverter:
         self.device_mq = device_mq
         self.lossy_rate = lossy_rate
         self.jpx = jpx
-        self.last_stats: dict = {}
+        self.scheduler = scheduler
+        # Per thread: concurrent converts each read their own encode's.
+        self._local = threading.local()
 
-    def convert(self, image_id: str, source_path: str,
-                conversion: Conversion = Conversion.LOSSLESS) -> str:
-        """Convert one source image to a JP2/JPX derivative; returns its
-        path. ``last_stats`` then holds the encode's Tier-1 volume
-        (code-blocks, symbols, MQ bytes)."""
-        if not os.path.exists(source_path):
-            raise ConverterError(f"source not found: {source_path}")
-        try:
-            img, bitdepth = tiff.read_image(source_path)
-        except Exception as exc:
-            raise ConverterError(
-                f"cannot read {source_path}: {exc}") from exc
+    @property
+    def last_stats(self) -> dict:
+        """The Tier-1 volume (code-blocks, symbols, MQ bytes) of the last
+        convert this thread made through this converter."""
+        return getattr(self._local, "stats", {})
 
-        h, w = img.shape[:2]
+    def encode_params(self, h: int, w: int, bitdepth: int,
+                      conversion: Conversion) -> EncodeParams:
+        """The Kakadu recipe for an h x w image of ``bitdepth`` bits, as
+        :meth:`convert` encodes it."""
         params = EncodeParams.kakadu_recipe(
             lossless=conversion == Conversion.LOSSLESS,
             rate=self.lossy_rate)
@@ -62,14 +67,47 @@ class CudaConverter:
         # The base step is calibrated for 8-bit signals; scale it with
         # the signal range so deeper scans quantize proportionally.
         params.base_delta *= (1 << (bitdepth - 8))
+        return params
+
+    def convert(self, image_id: str, source_path: str,
+                conversion: Conversion = Conversion.LOSSLESS, *,
+                priority: int | None = None,
+                deadline_s: float | None = None) -> str:
+        """Convert one source image to a JP2/JPX derivative; returns its
+        path. The encode waits for a slot of the scheduler at
+        ``priority`` (default PRIORITY_SINGLE) within ``deadline_s``;
+        QueueFull and DeadlineExceeded pass through, other failures
+        raise ConverterError. ``last_stats`` then holds the encode's
+        Tier-1 volume (code-blocks, symbols, MQ bytes)."""
+        if not os.path.exists(source_path):
+            raise ConverterError(f"source not found: {source_path}")
+        try:
+            img, bitdepth = tiff.read_image(source_path)
+        except Exception as exc:
+            raise ConverterError(
+                f"cannot read {source_path}: {exc}") from exc
+
+        h, w = img.shape[:2]
+        params = self.encode_params(h, w, bitdepth, conversion)
+        sched = self.scheduler or sched_mod.get_scheduler(self.device)
         stats: dict = {}
         try:
-            data = encode_jp2(img, bitdepth, params, jpx=self.jpx,
-                              device=self.device, stats=stats)
+            with obs.span("convert.encode", image_id=image_id,
+                          pixels=h * w):
+                data = sched.encode_jp2(
+                    img, bitdepth, params, jpx=self.jpx,
+                    priority=(sched_mod.PRIORITY_SINGLE if priority is None
+                              else priority),
+                    deadline_s=deadline_s, device=self.device,
+                    stats=stats)
+        except (sched_mod.QueueFull, sched_mod.DeadlineExceeded):
+            # Admission and deadline outcomes are protocol, not converter
+            # failures: a server maps them to 503 + Retry-After.
+            raise
         except Exception as exc:
             raise ConverterError(
                 f"encode failed for {image_id}: {exc}") from exc
-        self.last_stats = stats
+        self._local.stats = stats
 
         dest = output_path(image_id, ".jpx" if self.jpx else ".jp2")
         # Unique temp name: concurrent converts of the same id must not

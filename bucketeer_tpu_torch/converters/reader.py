@@ -46,6 +46,7 @@ from collections import OrderedDict
 
 import numpy as np
 
+from .. import obs
 from ..codec.decode import DecodeError, build_index, decode
 from ..codec.decode import probe as _probe
 from ..codec.decode import t1_dec
@@ -195,19 +196,19 @@ class CudaReader:
     ``count(name, n=1)`` for the per-tier cache counters and the index
     build time. ``device``: where the inverse transform (or the
     coefficient dequantizer) runs; "cuda" without a usable CUDA device
-    raises here. ``scheduler`` (admitted,
-    deadline-bound reads through the serving stack's scheduler) is not
-    ported: anything but None raises NotImplementedError.
+    raises here. ``scheduler``: an engine.scheduler.EncodeScheduler;
+    with one, every miss (and, for a region read, the stream-index
+    build before it) runs as one admitted read job
+    (``scheduler.read``, at read priority, on the device the scheduler
+    assigns when ``device`` names no index); without one, misses run on
+    the calling thread.
     """
 
     def __init__(self, cache_mb: int = -1, metrics=None,
                  scheduler=None, index_entries: int = -1,
                  device="cuda") -> None:
-        if scheduler is not None:
-            raise NotImplementedError(
-                "CudaReader(scheduler=...): the serving stack's scheduler "
-                "(ROADMAP Queue A.9) is not ported; read without one")
         self.device = require_device(device)
+        self.scheduler = scheduler
         if cache_mb < 0:
             try:
                 cache_mb = int(os.environ.get("BUCKETEER_DECODE_CACHE_MB",
@@ -350,15 +351,29 @@ class CudaReader:
                             return hit(out)
         if self.cache is not None:
             self._count("decode.cache_misses")
-        idx = (self._stream_index(source_path, st, data)
-               if region is not None else None)
-        if coefficients:
-            out = decode_to_coefficients(data, region=region,
-                                         reduce=reduce, layers=layers,
-                                         index=idx, device=self.device)
+
+        # The decode — and, for region reads, the stream-index build that
+        # precedes it — runs inside the scheduler's admitted read slot
+        # when one is installed: a cold read's header walk is costly
+        # host work, so it pays the same admission (bounded queue, 503)
+        # as the decode itself. Single-flight index waiters are safe
+        # here because the builder is already running in a granted slot.
+        def job():
+            idx = (self._stream_index(source_path, st, data)
+                   if region is not None else None)
+            if coefficients:
+                return decode_to_coefficients(
+                    data, region=region, reduce=reduce, layers=layers,
+                    index=idx, device=self.device)
+            return decode(data, reduce=reduce, layers=layers,
+                          region=region, index=idx, device=self.device)
+        if self.scheduler is not None:
+            with obs.span("decode.read",
+                          region=list(region) if region else None,
+                          reduce=reduce):
+                out = self.scheduler.read(job)
         else:
-            out = decode(data, reduce=reduce, layers=layers,
-                         region=region, index=idx, device=self.device)
+            out = job()
         if self.cache is not None:
             evicted = self.cache.put(key,
                                      out.clone() if coefficients else out)

@@ -53,7 +53,8 @@ class Library:
     """One shared library built from ``sources`` (file names under
     ``csrc/``; headers are hashed, not compiled). ``functions`` maps each
     exported symbol to its (argtypes, restype). ``launches`` counts the
-    kernel launches its wrapper made."""
+    kernel launches its wrapper made (:meth:`count_launch`, under a lock
+    of its own: launches come from many threads)."""
 
     def __init__(self, name: str, sources: tuple, functions: dict,
                  cuda: bool = True) -> None:
@@ -66,6 +67,12 @@ class Library:
         self.build_log = ""        # compiler output: registers, smem, spills
         self._lib = None
         self._lock = threading.Lock()
+        self._count_lock = threading.Lock()
+
+    def count_launch(self) -> None:
+        """Add one to ``launches``."""
+        with self._count_lock:
+            self.launches += 1
 
     def _flags(self) -> tuple:
         return NVCC_FLAGS if self.cuda else GXX_FLAGS
@@ -135,13 +142,24 @@ def kernel_library(name: str, sources: tuple, n_ptrs_in: int,
     return Library(name, sources, functions)
 
 
-def resident_blocks(kernel: Library, L: int) -> int:
-    """Thread blocks of ``kernel`` that one SM of the current device
-    holds at once at plane budget ``L``
+def cuda_device(device) -> torch.device:
+    """``device`` as a CUDA device with its index: a bare "cuda" is the
+    calling thread's current device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def resident_blocks(kernel: Library, L: int, device="cuda") -> int:
+    """Thread blocks of ``kernel`` that one SM of ``device`` holds at
+    once at plane budget ``L``
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     out = ctypes.c_int(0)
-    err = getattr(kernel.library(), f"{kernel.name}_occupancy")(
-        L, ctypes.byref(out))
+    fn = getattr(kernel.library(), f"{kernel.name}_occupancy")
+    # The C call queries the thread's current device.
+    with torch.cuda.device(cuda_device(device)):
+        err = fn(L, ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f"{kernel.name} occupancy query failed: CUDA "
                            f"error {err}")
@@ -150,16 +168,20 @@ def resident_blocks(kernel: Library, L: int) -> int:
 
 def launch(kernel: Library, fn_args: tuple, device) -> None:
     """Launch ``kernel`` on ``device``'s current stream after the
-    capability check; raise on a refused launch; count it."""
+    capability check; raise on a refused launch; count it. The C launch
+    runs in the calling thread's current CUDA device, so the call is
+    made with ``device`` current: a thread whose current device is
+    another card would pair that card with this device's stream."""
     from .support import require_kernels
 
     require_kernels(device)
+    device = cuda_device(device)
     fn = getattr(kernel.library(), f"{kernel.name}_launch")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*fn_args, stream)
+    with torch.cuda.device(device):
+        err = fn(*fn_args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel.name} launch failed: CUDA error {err}")
-    kernel.launches += 1
+    kernel.count_launch()
 
 
 def check_tensor(kernel: str, name: str, t: torch.Tensor, dtype, shape,

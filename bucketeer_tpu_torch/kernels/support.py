@@ -20,7 +20,7 @@ import threading
 
 import torch
 
-from .build import kernel_library
+from .build import cuda_device, kernel_library
 
 PROBE = kernel_library("probe", ("probe.cu",), 1, 1, 1)
 MIN_CAPABILITY = (9, 0)
@@ -37,11 +37,13 @@ def probe(x: torch.Tensor) -> torch.Tensor:
         raise ValueError("probe: x must be a contiguous int32 CUDA tensor")
     y = torch.empty_like(x)
     fn = PROBE.library().probe_launch
-    err = fn(x.data_ptr(), x.numel(), y.data_ptr(),
-             torch.cuda.current_stream(x.device).cuda_stream)
+    # The C launch runs in the thread's current device: make it x's.
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), x.numel(), y.data_ptr(),
+                 torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"probe launch failed: CUDA error {err}")
-    PROBE.launches += 1
+    PROBE.count_launch()
     return y
 
 
@@ -76,8 +78,7 @@ def require_kernels(device) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is unavailable: this torch build or "
                            "machine has no usable CUDA device")
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = cuda_device(device)
     cap = torch.cuda.get_device_capability(device)
     if cap < MIN_CAPABILITY:
         raise RuntimeError(

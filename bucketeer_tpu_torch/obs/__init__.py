@@ -1,0 +1,37 @@
+"""Request tracing, flight recorder and SLO watchdog: a copy of the JAX
+package's bucketeer_tpu/obs on plain ``threading``. Public surface:
+
+- :func:`span` / :func:`request_context` / :func:`bind` /
+  :func:`current_context` — the tracer (:mod:`.trace`): request-scoped
+  span trees in bounded per-thread rings, no-op without a recorder.
+- :func:`maybe_install` / :func:`install` / :func:`get_recorder` —
+  lifecycle; a server installs the process recorder at boot
+  (``BUCKETEER_TRACE`` gates it, default on).
+- ``get_recorder().flight`` — the flight recorder (:mod:`.flight`).
+- :func:`chrome_trace` — per-request Chrome-trace/Perfetto export
+  (:mod:`.export`).
+- :class:`SloWatchdog` (:mod:`.slo`) — per-endpoint latency budgets
+  feeding breach counters and flight dumps.
+- :mod:`.logctx` — every log record gains ``request_id``.
+
+The JAX package's ``obs/cost`` (launch costs modeled from its XLA
+manifest) has no counterpart: the scheduler's pipeline mapper reads
+measured stage times instead (``EncodeScheduler.stage_costs``).
+"""
+from __future__ import annotations
+
+from . import export, flight, logctx, slo  # noqa: F401
+from .slo import SloWatchdog  # noqa: F401
+from .trace import (Recorder, bind, current_context,  # noqa: F401
+                    current_request_id, get_recorder, install,
+                    installed, maybe_install, request_context, span,
+                    use_context)
+
+
+def chrome_trace(request_id):
+    """Chrome-trace document for one request from the installed
+    recorder; None when tracing is disabled."""
+    rec = get_recorder()
+    if rec is None:
+        return None
+    return export.chrome_trace(rec, request_id)

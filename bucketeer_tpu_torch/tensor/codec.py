@@ -85,10 +85,11 @@ _services = threading.local()
 def tensor_services(check=None, launch=None):
     """Per-thread scheduler services — the tensor-codec mirror of the
     decoder's services. ``check`` is the deadline hook polled between
-    chunks/blocks; ``launch`` (``callable(rows, floors, backend) ->
-    (blocks, n_syms, device_seconds)``) routes device-backend chunks
-    through a scheduler's device pool so compatible chunks from
-    concurrent tensor jobs can merge into one launch."""
+    chunks/blocks; ``launch`` (``callable(rows, floors, backend, device)
+    -> (blocks, n_syms, device_seconds)``, ``device`` the torch.device
+    the caller asked for) routes device-backend chunks through a
+    scheduler's device pool so compatible chunks from concurrent tensor
+    jobs can merge into one launch."""
     prev = (getattr(_services, "check", None),
             getattr(_services, "launch", None))
     _services.check = check
@@ -252,7 +253,8 @@ def encode_tensor(arr, planes: int | None = None,
                 # Scheduler seam: the pool runs (and possibly merges)
                 # the chunk on a free device; byte-identical because
                 # per-block coding is independent of its batch-mates.
-                blks, syms, ds = launch(sub, fsub, backend)
+                blks, syms, ds = launch(sub, fsub, backend,
+                                        torch_device)
             else:
                 blks, syms, ds = encode_chunk_device(sub, fsub, backend,
                                                      torch_device)

@@ -141,7 +141,8 @@ def coeff_services(check=None, launch=None):
 
     - ``check()`` is polled at per-tile Tier-1 boundaries (the
       scheduler's deadline hook for ``kind="batchread"`` jobs);
-    - ``launch(reversible, deltas, arrays)`` replaces the inline
+    - ``launch(reversible, deltas, arrays, device)`` (``device`` the
+      torch.device the read asked for) replaces the inline
       dequant dispatch, so a scheduler can queue the dequant on its
       device pool, where compatible launches from concurrent batch
       items merge into one. Must return the same tuple of per-band
@@ -224,7 +225,7 @@ class BandSlice:
 def _run_dequant(reversible: bool, deltas: tuple, arrays: list, device):
     launch = getattr(_TLS, "launch", None)
     if launch is not None:
-        return launch(reversible, deltas, arrays)
+        return launch(reversible, deltas, arrays, device)
     return run_dequant_inline(reversible, deltas, arrays, device)
 
 

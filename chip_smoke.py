@@ -85,7 +85,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    equal the crop of the full read, every band is on the card and
    equals the same read on the CPU. The oracle's host coder and the CPU reads run in worker
    processes after every timed card run;
-8. one JSON line with every kernel, then the card line and the result
+8. the cross-request scheduler: one EncodeScheduler(device="cuda") with
+   a Metrics sink, the launch counts set to 0 just before and read just
+   after, launching from threads that never set a CUDA device: four
+   concurrent CudaConverter(scheduler=...).convert calls (lossless and
+   lossy, of phase 5's image and a second 4096x4096 image from --seed +
+   1), then two concurrent split converts on the shared host Tier-1
+   pool, each file equal to the direct encode of its image (phase 5's
+   files; the second image's own encode_jp2 without a scheduler), with
+   the concurrent wall beside the solo walls, queue waits and peak
+   device memory; with one slot and an encode running, a queued encode
+   and then a 512x512 lossy tile read through CudaReader(scheduler=...):
+   the read is granted first and equals phase 6's read; phase 7's
+   bfloat16 tensor and three more from --seed + 2 through submit_tensor
+   from four threads, blobs equal to the direct encodes, with merged
+   launches (tensor.batch_occupancy max > 1) timed by CUDA events
+   beside their bound; two concurrent coefficient-read misses and a
+   two-item batch read (merged dequantizer), bands equal to phase 7's;
+   admission on a scheduler of its own: QueueFull with retry_after,
+   DeadlineExceeded, and close() failing the queued waiter with
+   SchedulerClosed without a hang;
+9. one JSON line with every kernel, then the card line and the result
    line.
 """
 from __future__ import annotations
@@ -99,6 +119,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
@@ -1003,7 +1024,7 @@ def main_path(conv, src: str, img, split: bool) -> dict:
     path = "split" if split else "fused"
     kernel = "cxd_scan" if split else "fused_t1"
     real = getattr(cxd, kernel)
-    files = {}
+    files, walls = {}, {}
     reset_counts()
     for conversion in (Conversion.LOSSLESS, Conversion.LOSSY):
         timer = LaunchTimer(cxd_scan if split else fused_t1, real,
@@ -1040,6 +1061,7 @@ def main_path(conv, src: str, img, split: bool) -> dict:
         st = conv.last_stats
         with open(out, "rb") as fh:
             files[conversion] = fh.read()
+        walls[conversion] = wall
         data = files[conversion]
         verdict = ("" if split else "; " + check_jp2(
             data, img, conversion == Conversion.LOSSLESS))
@@ -1069,7 +1091,7 @@ def main_path(conv, src: str, img, split: bool) -> dict:
     for name, launched in want.items():
         if (counts[name] > 0) != launched:
             fail(f"main {path}: {name} launched {counts[name]} times")
-    return {"files": files, "counts": counts}
+    return {"files": files, "walls": walls, "counts": counts}
 
 
 def phase_main(img, workdir) -> dict:
@@ -1098,6 +1120,9 @@ def phase_main(img, workdir) -> dict:
     groups = phase_breakdown(convs["fused"], src, split=False)
     phase_breakdown(convs["split"], src, split=True)
     return {"counts": {p: r["counts"] for p, r in runs.items()},
+            "src": src, "files": runs["fused"]["files"],
+            "walls": runs["fused"]["walls"],
+            "split_walls": runs["split"]["walls"],
             "lossy_groups": groups}
 
 
@@ -1363,7 +1388,8 @@ def phase_read(img) -> dict:
             row["device_busy_ms"], row["device_ops"] = profile_inverse(
                 reader, paths, row)
     say("read table: " + json.dumps(rows))
-    return {"rows": rows, "differ": (n_tile, n_thumb), "psnr": db}
+    return {"rows": rows, "differ": (n_tile, n_thumb), "psnr": db,
+            "pixels": out, "paths": paths}
 
 
 def profile_inverse(reader, paths: dict, row: dict) -> tuple:
@@ -1560,7 +1586,7 @@ def phase_tensors(rng) -> dict:
         f"{k} {tuple(v.shape)} ({v.numel() * v.element_size()} B)"
         for k, v in xs.items()))
     slices, launches = {}, {"fused_t1": 0, "cxd_scan": 0, "probe": 0}
-    rows = []
+    rows, blobs, walls = [], {}, {}
     for name, x in xs.items():
         part = x.reshape(-1)[:ORACLE_BLOCKS * 4096]
         t0 = time.perf_counter()
@@ -1574,7 +1600,8 @@ def phase_tensors(rng) -> dict:
                                             "fused_t1", chunk_blocks=4096),
                 "replay": tensor_encode(x, f"{name} replay chunk 64",
                                         "cxd_scan", device="replay")}
-        ref = runs["chunk 64"]["blob"]
+        ref = blobs[name] = runs["chunk 64"]["blob"]
+        walls[name] = runs["chunk 64"]["wall"]
         for label, run in runs.items():
             if label != "chunk 64":
                 same = run["blob"] == ref
@@ -1599,7 +1626,8 @@ def phase_tensors(rng) -> dict:
         say(f"tensor {name}: the slice's blocks equal the full blob's "
             f"first {ORACLE_BLOCKS} blocks of each limb")
     say("tensor table: " + json.dumps(rows))
-    return {"slices": slices, "launches": launches}
+    return {"slices": slices, "launches": launches, "inputs": xs,
+            "blobs": blobs, "walls": walls}
 
 
 def check_oracle(slices: dict, results: dict) -> None:
@@ -1787,6 +1815,441 @@ def phase_host_checks(tensors: dict, coeff: dict) -> None:
         say(f"coeffs: the {kind} reads on the CPU took {t_cpu:.2f} s")
 
 
+# --- phase 8: the cross-request scheduler ----------------------------------
+
+TENSOR_JOBS = 3             # bfloat16 tensors besides phase 7's
+
+
+def _stage_ms(sink, name: str) -> str:
+    """A stage of a Metrics sink: its median (the histogram's
+    quarter-octave bucket) and its exact maximum."""
+    st = sink.stages.get(name)
+    if st is None or not st.count:
+        return f"{name} none"
+    return (f"{name} p50 {st.hist.percentile(0.5) * 1e3:.3f} ms (bucket), "
+            f"max {st.max_s * 1e3:.3f} ms ({st.count} samples)")
+
+
+def _run_threads(fns: list, label: str) -> tuple:
+    """Run the thunks in threads released together (none of which has
+    set a CUDA device); returns (results, wall from release to the last
+    join with the card synchronized). A thunk's exception fails the
+    phase."""
+    barrier = threading.Barrier(len(fns) + 1)
+    outs = [None] * len(fns)
+    errs = [None] * len(fns)
+
+    def client(i):
+        barrier.wait()
+        try:
+            outs[i] = fns[i]()
+        except BaseException as exc:
+            errs[i] = exc
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            fail(f"{label}: a client hung")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for e in errs:
+        if e is not None:
+            fail(f"{label}: {type(e).__name__}: {e}")
+    return outs, wall
+
+
+def _wait_for(pred, label: str, limit: float = 120.0) -> None:
+    t_end = time.monotonic() + limit
+    while not pred():
+        if time.monotonic() > t_end:
+            fail(f"{label}: timed out")
+        time.sleep(0.002)
+
+
+def _same_bands(label: str, got, ref) -> None:
+    from bucketeer_tpu_torch.tensor.coeffs import BandSlice
+
+    for key, band in ref.bands.items():
+        mine = got.bands[key]
+        if isinstance(mine, BandSlice):
+            mine = mine.materialize()
+        if not torch.equal(mine, band):
+            fail(f"{label}: band {key} differs from phase 7's read")
+    say(f"sched check: {label}: {len(ref.bands)} bands equal phase 7's "
+        "(tolerance 0)")
+
+
+def sched_references(seed: int, workdir: str, tensors: dict) -> dict:
+    """The direct runs phase 8 is held against, made before its counts are
+    set to 0: a second 4096x4096 image from --seed + 1, encoded lossless
+    and lossy by encode_jp2 with no scheduler (TIFF read and encode
+    timed: its solo walls), and TENSOR_JOBS more bfloat16 4096x4096
+    weight matrices from --seed + 2 through encode_tensor (solo walls)."""
+    from bucketeer_tpu_torch.codec import encoder, tiff
+    from bucketeer_tpu_torch.converters import Conversion, CudaConverter
+    from bucketeer_tpu_torch.tensor import encode_tensor
+
+    img2 = photo(np.random.default_rng(seed + 1), SIZE, SIZE)
+    src2 = os.path.join(workdir, "smoke-2.tif")
+    write_tiff(src2, img2)
+    conv = CudaConverter()
+    files, walls = {}, {}
+    for conversion in (Conversion.LOSSLESS, Conversion.LOSSY):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        im, bits = tiff.read_image(src2)
+        files[conversion] = encoder.encode_jp2(
+            im, bits, conv.encode_params(SIZE, SIZE, bits, conversion),
+            jpx=True, device="cuda")
+        torch.cuda.synchronize()
+        walls[conversion] = time.perf_counter() - t0
+        say(f"sched reference: image 2 {conversion.value} direct "
+            f"(TIFF read + encode_jp2, no scheduler) {walls[conversion]:.3f}"
+            f" s, {len(files[conversion])} B")
+    rng = np.random.default_rng(seed + 2)
+    xs, blobs, twalls = [], [], []
+    for _ in range(TENSOR_JOBS):
+        w = rng.standard_normal((TENSOR_SIDE, TENSOR_SIDE),
+                                dtype=np.float32) * np.float32(0.02)
+        x = torch.from_numpy(w).cuda().to(torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blobs.append(encode_tensor(x))
+        torch.cuda.synchronize()
+        twalls.append(time.perf_counter() - t0)
+        xs.append(x)
+    say("sched reference: bfloat16 tensors from --seed + 2 encoded solo in "
+        + ", ".join(f"{t:.3f}" for t in twalls) + " s")
+    return {"img2": img2, "src2": src2, "files2": files, "walls2": walls,
+            "xs": [tensors["inputs"]["bfloat16"]] + xs,
+            "blobs": [tensors["blobs"]["bfloat16"]] + blobs,
+            "twalls": [tensors["walls"]["bfloat16"]] + twalls}
+
+
+def phase_scheduler(img, main_res: dict, read_res: dict, tensors: dict,
+                    coeff: dict, ref: dict) -> dict:
+    """Phase 8: concurrent converts, a read under load, merged tensor
+    launches, coefficient reads and admission through one
+    EncodeScheduler(device="cuda") with a Metrics sink, the launch counts
+    set to 0 just before and read just after. Every output is held
+    against the direct run of the same input."""
+    from bucketeer_tpu_torch.codec import cxd, encoder, t1_batch
+    from bucketeer_tpu_torch.converters import (Conversion, CudaConverter,
+                                                CudaReader)
+    from bucketeer_tpu_torch.engine.scheduler import (
+        DeadlineExceeded, EncodeScheduler, QueueFull, SchedulerClosed)
+    from bucketeer_tpu_torch.kernels import fused_t1
+    from bucketeer_tpu_torch.server.metrics import Metrics
+    from bucketeer_tpu_torch.tensor import (coeff_services, coeffs,
+                                            decode_to_coefficients,
+                                            encode_tensor)
+
+    src, src2 = main_res["src"], ref["src2"]
+    files = {1: main_res["files"], 2: ref["files2"]}
+    LL, LY = Conversion.LOSSLESS, Conversion.LOSSY
+    sink = Metrics()
+    s = EncodeScheduler(device="cuda")
+    s.set_metrics_sink(sink)
+    reset_counts()
+
+    def read_file(path):
+        with open(path, "rb") as fh:
+            return fh.read()
+
+    # (a) four concurrent converts, then two concurrent split converts.
+    conv = CudaConverter(scheduler=s)
+    jobs = [(1, LL), (1, LY), (2, LL), (2, LY)]
+    torch.cuda.reset_peak_memory_stats()
+    outs, wall = _run_threads(
+        [lambda i=i, c=c: read_file(conv.convert(
+            f"smoke-sched-{i}-{c.value}", src if i == 1 else src2, c))
+         for i, c in jobs], "sched converts")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    for (i, c), data in zip(jobs, outs):
+        if data != files[i][c]:
+            fail(f"sched: concurrent convert of image {i} {c.value} "
+                 "differs from its direct encode")
+    solo = [main_res["walls"][LL], main_res["walls"][LY],
+            ref["walls2"][LL], ref["walls2"][LY]]
+    rep = sink.report()
+    px = 4 * SIZE * SIZE
+    say(f"sched converts: 4 concurrent {SIZE}x{SIZE} converts (images 1 and "
+        f"2, lossless and lossy) equal their direct encodes; wall "
+        f"{wall:.3f} s against {sum(solo):.3f} s of solo walls ("
+        + " + ".join(f"{w:.3f}" for w in solo) + "); aggregate "
+        f"{px / wall / 1e6:.3f} MPix/s against {px / sum(solo) / 1e6:.3f} "
+        f"serial ({sum(solo) / wall:.3f}x); {_stage_ms(sink, 'encode.queue_wait')}"
+        f"; {_stage_ms(sink, 'encode.request')}; encode.device_launches "
+        f"{rep['counters'].get('encode.device_launches', 0)} (occupancy max "
+        f"{rep['values']['encode.batch_occupancy']['max']:.0f}); peak device "
+        f"memory {peak:.1f} MiB")
+    split = CudaConverter(device_cxd=True, device_mq=False, scheduler=s)
+    sjobs = [(1, LY), (2, LL)]
+    outs, swall = _run_threads(
+        [lambda i=i, c=c: read_file(split.convert(
+            f"smoke-sched-split-{i}-{c.value}", src if i == 1 else src2, c))
+         for i, c in sjobs], "sched split converts")
+    for (i, c), data in zip(sjobs, outs):
+        if data != files[i][c]:
+            fail(f"sched: concurrent split convert of image {i} {c.value} "
+                 "differs from the direct fused encode")
+    p5 = main_res["split_walls"]
+    say(f"sched split: 2 concurrent split converts (image 1 lossy, image 2 "
+        f"lossless) equal the direct fused files; wall {swall:.3f} s (phase "
+        f"5's solo split converts of image 1: lossless {p5[LL]:.3f} s, lossy "
+        f"{p5[LY]:.3f} s); shared host Tier-1 pool {s.pool_size} worker(s) "
+        f"x {t1_batch.default_threads()} replay threads")
+
+    # (b) a read under load: one slot, an encode running, one queued.
+    s.configure(max_concurrent=1)
+    order, marks = [], {}
+    gate = threading.Event()
+    p_ll = conv.encode_params(SIZE, SIZE, 8, LL)
+    p_ly = conv.encode_params(SIZE, SIZE, 8, LY)
+
+    def tagged(tag, fn, *a, **kw):
+        def run():
+            marks[tag] = time.perf_counter()
+            order.append(tag)
+            return fn(*a, **kw)
+        return run
+
+    def held():
+        gate.wait(timeout=600)
+        return encoder.encode_jp2(img, 8, p_ll, jpx=True, device="cuda")
+
+    class TaggingScheduler:
+        def read(self, job, **kw):
+            return s.read(tagged("read", job), **kw)
+
+    reader = CudaReader(device="cuda", scheduler=TaggingScheduler(),
+                        cache_mb=0)
+    res = {}
+
+    def start(name, fn):
+        t = threading.Thread(target=lambda: res.__setitem__(name, fn()),
+                             daemon=True)
+        t.start()
+        return t
+
+    threads = [start("running", lambda: s.submit(tagged("running", held)))]
+    _wait_for(lambda: s.stats()["running"] == 1, "sched read: holder")
+    threads.append(start("queued", lambda: s.submit(tagged(
+        "queued", encoder.encode_jp2, ref["img2"], 8, p_ly, jpx=True,
+        device="cuda"))))
+    _wait_for(lambda: s.stats()["waiting"] == 1, "sched read: queued")
+    t_read = time.perf_counter()
+    threads.append(start("read", lambda: (
+        reader.read(read_res["paths"]["lossy"], region=COEFF_TILE),
+        time.perf_counter())))
+    _wait_for(lambda: s.stats()["waiting"] == 2, "sched read: read queued")
+    gate.set()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            fail("sched read: a request hung")
+    if set(res) != {"running", "queued", "read"}:
+        fail(f"sched read: requests failed: only {sorted(res)} returned")
+    pixels, t_done = res["read"]
+    say(f"sched read: grant order {order} (one slot; the read arrived "
+        "after the queued encode)")
+    if order != ["running", "read", "queued"]:
+        fail(f"sched read: the read was not granted before the queued "
+             f"encode: {order}")
+    _exact("sched read: lossy tile through the scheduler == phase 6's read",
+           pixels, read_res["pixels"]["lossy", "one tile"])
+    if res["running"] != files[1][LL] or res["queued"] != files[2][LY]:
+        fail("sched read: an encode of the read-under-load run differs "
+             "from its direct encode")
+    say(f"sched read: the {pixels.shape} lossy tile waited "
+        f"{marks['read'] - t_read:.3f} s for its slot (the running encode "
+        f"{marks['read'] - marks['running']:.3f} s) and took "
+        f"{t_done - t_read:.3f} s in all; the queued encode waited "
+        f"{marks['queued'] - t_read:.3f} s from the read's arrival")
+    s.configure(max_concurrent=8)
+
+    # (c) merged tensor launches.
+    timer = LaunchTimer(fused_t1, cxd.fused_t1, _fused_volume)
+    cxd.fused_t1 = timer
+    try:
+        with timer:
+            blobs, twall = _run_threads(
+                [lambda x=x: s.submit_tensor(encode_tensor, x)
+                 for x in ref["xs"]], "sched tensors")
+    finally:
+        cxd.fused_t1 = timer.fn
+    for k, (got, want) in enumerate(zip(blobs, ref["blobs"])):
+        if got != want:
+            fail(f"sched tensors: blob {k} differs from its direct encode"
+                 + (" (phase 7's)" if k == 0 else ""))
+    rep = sink.report()
+    occ = rep["values"]["tensor.batch_occupancy"]
+    n_launch = rep["counters"]["tensor.device_launches"]
+    ms = [a.elapsed_time(b) for a, b, _ in timer.launches]
+    bounds = timer.bounds(fused_bound)
+    blocks = [v[1].shape[0] for _, _, v in timer.launches]
+    raw = sum(x.numel() * x.element_size() for x in ref["xs"])
+    tsolo = sum(ref["twalls"])
+    say(f"sched tensors: {len(blobs)} concurrent bfloat16 {TENSOR_SIDE}^2 "
+        f"tensors through submit_tensor equal their direct blobs (the "
+        f"first is phase 7's); tensor.batch_occupancy max {occ['max']:.0f}, "
+        f"mean {occ['mean']:.3f}; tensor.device_launches {n_launch} "
+        f"(solo: {64 * len(blobs)}); fused_t1 {len(ms)} launches of "
+        f"{min(blocks)}-{max(blocks)} blocks, {sum(ms) / len(ms):.3f} ms per "
+        f"launch by CUDA events (min {min(ms):.3f}, max {max(ms):.3f}), "
+        f"{sum(ms):.1f} ms in all; bound {sum(b[0] for b in bounds) / len(bounds):.6f}"
+        f" ms per launch by {bounds[0][1]}; wall {twall:.3f} s, "
+        f"{raw / twall / 1e6:.3f} MB/s aggregate against {tsolo:.3f} s "
+        f"solo ({raw / tsolo / 1e6:.3f} MB/s; phase 7's bfloat16 "
+        f"{ref['twalls'][0]:.3f} s)")
+    if occ["max"] <= 1:
+        fail("sched tensors: no launch merged two jobs")
+
+    # (d) coefficient reads: two concurrent misses, then a batch read.
+    creader = CudaReader(device="cuda", scheduler=s, cache_mb=0)
+    path = coeff["paths"]["lossy"]
+    want = coeff["out"]["lossy", "region"]
+    sets, cwall = _run_threads(
+        [lambda: creader.read_coefficients(path, region=COEFF_TILE)] * 2,
+        "sched coefficient reads")
+    for k, got in enumerate(sets):
+        _same_bands(f"concurrent coefficient read {k}", got, want)
+    with open(path, "rb") as fh:
+        data = fh.read()
+
+    def batch():
+        check, launch = coeffs.current_services()
+
+        def item():
+            with coeff_services(check=check,
+                                launch=lambda *a: launch(*a, _expected=2)):
+                return decode_to_coefficients(data, region=COEFF_TILE)
+
+        return _run_threads([item, item], "sched batch read")
+
+    t0 = time.perf_counter()
+    bsets, _ = s.submit_batchread(batch)
+    bwall = time.perf_counter() - t0
+    for k, got in enumerate(bsets):
+        _same_bands(f"batch-read item {k}", got, want)
+    rep = sink.report()
+    picked = {k: v for k, v in rep["counters"].items()
+              if k.startswith(("batchread.", "decode."))}
+    say(f"sched coeffs: 2 concurrent read_coefficients misses {cwall:.3f} s;"
+        f" a 2-item batch read {bwall:.3f} s, "
+        f"batchread.batch_occupancy max "
+        f"{rep['values']['batchread.batch_occupancy']['max']:.0f}; "
+        f"counters {picked}; {_stage_ms(sink, 'decode.queue_wait')}; "
+        f"{_stage_ms(sink, 'batchread.queue_wait')}")
+    s.close()
+    say("sched report: " + json.dumps(sink.report()["counters"]))
+
+    # (e) admission on a scheduler of its own.
+    phase_admission(img, files[1][LL], conv)
+    counts = read_counts()
+    say(f"sched: launches in the scheduler's run {counts}")
+    want_k = {"fused_t1": True, "cxd_scan": True, "mq_scan": False,
+              "probe": True}
+    for name, launched in want_k.items():
+        if (counts[name] > 0) != launched:
+            fail(f"sched: {name} launched {counts[name]} times")
+    return {"counts": counts}
+
+
+def phase_admission(img, want: bytes, conv) -> None:
+    """queue_depth=2, one slot: two encodes hold the queue (one running,
+    one queued); a third submit raises QueueFull; with room for one more,
+    a request with deadline_s=0.001 raises DeadlineExceeded; close() with
+    one queued waiter raises SchedulerClosed in it, and in the granted
+    encode whose next chunk finds the pool closed, and does not hang."""
+    from bucketeer_tpu_torch.codec import encoder
+    from bucketeer_tpu_torch.converters import Conversion
+    from bucketeer_tpu_torch.engine.scheduler import (
+        DeadlineExceeded, EncodeScheduler, QueueFull, SchedulerClosed)
+    from bucketeer_tpu_torch.server.metrics import Metrics
+
+    p_ll = conv.encode_params(SIZE, SIZE, 8, Conversion.LOSSLESS)
+    sink = Metrics()
+    s = EncodeScheduler(device="cuda", queue_depth=2, max_concurrent=1)
+    s.set_metrics_sink(sink)
+    gates = [threading.Event(), threading.Event()]
+    res = {}
+
+    def held(k):
+        def run():
+            gates[k].wait(timeout=600)
+            return encoder.encode_jp2(img, 8, p_ll, jpx=True,
+                                      device="cuda")
+        return run
+
+    def start(name, fn):
+        def body():
+            try:
+                res[name] = fn()
+            except BaseException as exc:
+                res[name] = exc
+        t = threading.Thread(target=body, daemon=True)
+        t.start()
+        return t
+
+    ta = start("a", lambda: s.submit(held(0)))
+    _wait_for(lambda: s.stats()["running"] == 1, "admission: a")
+    tb = start("b", lambda: s.submit(held(1)))
+    _wait_for(lambda: s.stats()["admitted"] == 2, "admission: b")
+    try:
+        s.submit(lambda: None)
+        fail("admission: a third submit at queue_depth=2 was admitted")
+    except QueueFull as exc:
+        full = exc
+    if not full.retry_after > 0:
+        fail("admission: QueueFull without retry_after > 0")
+    s.configure(queue_depth=3)
+    t0 = time.perf_counter()
+    try:
+        s.submit(lambda: None, deadline_s=0.001)
+        fail("admission: the deadline_s=0.001 request ran")
+    except DeadlineExceeded:
+        t_dl = time.perf_counter() - t0
+    gates[0].set()
+    ta.join(timeout=600)
+    if res.get("a") != want:
+        fail(f"admission: the running encode did not finish with its "
+             f"direct file: {res.get('a')!r:.200}")
+    # A's finish granted B (the expired ticket is skipped).
+    if s.stats()["running"] != 1 or s.stats()["admitted"] != 1:
+        fail(f"admission: B was not granted after A: {s.stats()}")
+    tc = start("c", lambda: s.submit(lambda: "ran"))
+    _wait_for(lambda: s.stats()["admitted"] == 2, "admission: c")
+    t0 = time.perf_counter()
+    closer = threading.Thread(target=s.close, daemon=True)
+    closer.start()
+    closer.join(timeout=60)
+    t_close = time.perf_counter() - t0
+    gates[1].set()
+    for t in (closer, tb, tc):
+        t.join(timeout=120)
+        if t.is_alive():
+            fail("admission: close() or a request hung")
+    if not isinstance(res.get("c"), SchedulerClosed) or \
+            not isinstance(res.get("b"), SchedulerClosed):
+        fail(f"admission: after close() the queued waiter got "
+             f"{res.get('c')!r} and the held encode {res.get('b')!r}")
+    if s.device_threads_alive() or s.stats()["admitted"] != 0:
+        fail(f"admission: the scheduler did not wind down: {s.stats()}")
+    say(f"sched admission: QueueFull at queue_depth=2 ({full}); "
+        f"DeadlineExceeded after {t_dl * 1e3:.3f} ms for deadline_s=0.001; "
+        f"close() returned in {t_close:.3f} s, SchedulerClosed in the queued"
+        f" waiter and in the granted encode's first dispatch; the running "
+        f"encode finished equal to its direct file; counters "
+        f"{sink.report()['counters']}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -1823,24 +2286,38 @@ def main() -> None:
         phase_host_checks(tensors, coeff)
         say(f"phase 7 (tensors and coefficients) "
             f"{time.perf_counter() - t7:.1f} s")
+        t8 = time.perf_counter()
+        ref = sched_references(args.seed, workdir, tensors)
+        sched = phase_scheduler(img, main_res, read_res, tensors, coeff,
+                                ref)
+        say(f"phase 8 (the scheduler) {time.perf_counter() - t8:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     counts = main_res["counts"]
     tl = tensors["launches"]
-    launches = {"fused_t1": counts["fused"]["fused_t1"] + tl["fused_t1"],
-                "cxd_scan": counts["split"]["cxd_scan"] + tl["cxd_scan"],
+    sl = sched["counts"]
+    launches = {"fused_t1": (counts["fused"]["fused_t1"] + tl["fused_t1"]
+                             + sl["fused_t1"]),
+                "cxd_scan": (counts["split"]["cxd_scan"] + tl["cxd_scan"]
+                             + sl["cxd_scan"]),
                 "probe": (counts["fused"]["probe"] + counts["split"]["probe"]
-                          + tl["probe"]),
+                          + tl["probe"] + sl["probe"]),
                 # No encode path runs mq_scan (the JAX package has no call
                 # site for mq_pallas either): its count is the whole run's,
                 # every launch a check against plain or fused_t1.
                 "mq_scan": (RUN_LAUNCHES.get("mq_scan", 0)
                             + libraries()["mq_scan"].launches)}
-    paths = {"fused_t1": "fused main path; tensor codec, device backend",
-             "cxd_scan": "split main path; tensor codec, replay backend",
-             "probe": "first launch of each main path and tensor encode",
+    paths = {"fused_t1": "fused main path (converts through the "
+                         "process-wide scheduler); tensor codec, device "
+                         "backend; the scheduler's concurrent converts and "
+                         "merged tensor launches (phase 8)",
+             "cxd_scan": "split main path (through the process-wide "
+                         "scheduler); tensor codec, replay backend; the "
+                         "scheduler's concurrent split converts (phase 8)",
+             "probe": "first launch of each main path, tensor encode and "
+                      "the scheduler's phase",
              "mq_scan": "none: the oracle surface; launches of the whole "
                         "run's kernel checks"}
     source = {"fused_t1": "fused_t1.cu", "cxd_scan": "cxd_scan.cu",

@@ -166,10 +166,11 @@ def test_services_and_batched_dequant(files):
     data = files["rgb97"]
     polls, launches = [], []
 
-    def launch(reversible, deltas, arrays):
+    def launch(reversible, deltas, arrays, device):
         launches.append(len(arrays))
+        assert device == torch.device("cpu")
         return coeffs.run_dequant_inline(reversible, deltas, arrays,
-                                         device="cpu")
+                                         device=device)
 
     ref = decode_to_coefficients(data, device="cpu")
     with coeffs.coeff_services(check=lambda: polls.append(1),

@@ -129,3 +129,92 @@ def test_mesh_raises():
     with pytest.raises(NotImplementedError, match="mesh"):
         t_encoder.encode_jp2(_photo(8, 16, 16), 8, mesh=object(),
                              device="cpu")
+
+
+def _tiff(tmp_path, name, img):
+    from PIL import Image
+
+    path = tmp_path / name
+    Image.fromarray(img).save(path)
+    return str(path)
+
+
+def test_converter_last_stats_per_thread(tmp_path, monkeypatch):
+    """Two concurrent converts on one converter through a CPU scheduler:
+    each thread reads its own encode's Tier-1 volume in ``last_stats``,
+    and each file equals the direct encode of its image."""
+    import threading
+
+    from bucketeer_tpu_torch.engine.scheduler import EncodeScheduler
+
+    monkeypatch.setenv("BUCKETEER_TMPDIR", str(tmp_path))
+    rng = np.random.default_rng(41)
+    imgs = [rng.integers(0, hi, (24, 24), dtype=np.uint8)
+            for hi in (2, 8)]
+    srcs = [_tiff(tmp_path, f"s{i}.tif", im) for i, im in enumerate(imgs)]
+    sched = EncodeScheduler(device="cpu", pool_size=1, window_s=0)
+    conv = CudaConverter(device="cpu", scheduler=sched)
+    want = []
+    for im in imgs:
+        stats: dict = {}
+        params = conv.encode_params(24, 24, 8, Conversion.LOSSLESS)
+        data = t_encoder.encode_jp2(im, 8, params, jpx=True, device="cpu",
+                                    stats=stats)
+        want.append((data, stats))
+    assert want[0][1] != want[1][1]
+    got = [None, None]
+    barrier = threading.Barrier(2)
+
+    def client(i):
+        barrier.wait()
+        out = conv.convert(f"ark:/1/t{i}", srcs[i], Conversion.LOSSLESS)
+        with open(out, "rb") as fh:
+            got[i] = (fh.read(), dict(conv.last_stats))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(2)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        sched.close()
+    assert got == want
+    assert conv.last_stats == {}        # this thread converted nothing
+
+
+def test_converter_admission_errors_pass_through(tmp_path, monkeypatch):
+    """QueueFull and DeadlineExceeded reach the caller as themselves;
+    other encode failures become ConverterError; a converter for the
+    card raises where there is no card instead of encoding on the
+    CPU."""
+    import torch
+
+    from bucketeer_tpu_torch.converters import ConverterError
+    from bucketeer_tpu_torch.engine import scheduler as sched_mod
+
+    monkeypatch.setenv("BUCKETEER_TMPDIR", str(tmp_path))
+    src = _tiff(tmp_path, "s.tif", np.zeros((16, 16), np.uint8))
+
+    class Refusing:
+        def __init__(self, exc):
+            self.exc = exc
+
+        def encode_jp2(self, *a, **kw):
+            raise self.exc
+
+    for exc in (sched_mod.QueueFull(1, 2.0),
+                sched_mod.DeadlineExceeded("late")):
+        with pytest.raises(type(exc)):
+            CudaConverter(device="cpu", scheduler=Refusing(exc)).convert(
+                "ark:/1/q", src)
+    with pytest.raises(ConverterError, match="boom"):
+        CudaConverter(device="cpu",
+                      scheduler=Refusing(ValueError("boom"))).convert(
+            "ark:/1/q", src)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    monkeypatch.setattr(sched_mod, "_GLOBAL", {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CudaConverter().convert("ark:/1/q", src)

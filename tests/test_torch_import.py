@@ -45,7 +45,17 @@ def test_port_imports_no_jax_and_no_jax_package():
             "bucketeer_tpu_torch.tensor.planes",
             "bucketeer_tpu_torch.tensor.container",
             "bucketeer_tpu_torch.tensor.codec",
-            "bucketeer_tpu_torch.tensor.coeffs"} <= set(res["modules"])
+            "bucketeer_tpu_torch.tensor.coeffs",
+            "bucketeer_tpu_torch.engine",
+            "bucketeer_tpu_torch.engine.scheduler",
+            "bucketeer_tpu_torch.engine.faults",
+            "bucketeer_tpu_torch.obs",
+            "bucketeer_tpu_torch.obs.trace",
+            "bucketeer_tpu_torch.obs.flight",
+            "bucketeer_tpu_torch.obs.export",
+            "bucketeer_tpu_torch.obs.logctx",
+            "bucketeer_tpu_torch.obs.slo",
+            "bucketeer_tpu_torch.server.metrics"} <= set(res["modules"])
     bad = [m for m in res["new"]
            if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "bucketeer_tpu" or m.startswith("bucketeer_tpu.")
@@ -57,12 +67,13 @@ def _port_sources() -> list:
     root = bucketeer_tpu_torch.__path__[0]
     paths = [os.path.join(d, f) for d, _, files in os.walk(root)
              for f in files if f.endswith(".py")]
-    return sorted(paths) + [os.path.join(REPO, "chip_smoke.py")]
+    return sorted(paths) + [os.path.join(REPO, f) for f in (
+        "chip_smoke.py", "t1_ab.py", "sched_pool_ab.py")]
 
 
 def test_port_sources_name_no_jax_import():
-    """No source line of the port or of chip_smoke.py imports JAX or the
-    JAX package, even behind a function (a lazy import would escape the
+    """No source line of the port or of its card scripts imports JAX or
+    the JAX package, even behind a function (a lazy import would escape the
     probe above)."""
     paths = _port_sources()
     rel = {os.path.relpath(p, REPO) for p in paths}
@@ -79,7 +90,17 @@ def test_port_sources_name_no_jax_import():
             "bucketeer_tpu_torch/tensor/container.py",
             "bucketeer_tpu_torch/tensor/codec.py",
             "bucketeer_tpu_torch/tensor/coeffs.py",
-            "chip_smoke.py"} <= rel
+            "bucketeer_tpu_torch/engine/__init__.py",
+            "bucketeer_tpu_torch/engine/scheduler.py",
+            "bucketeer_tpu_torch/engine/faults.py",
+            "bucketeer_tpu_torch/obs/__init__.py",
+            "bucketeer_tpu_torch/obs/trace.py",
+            "bucketeer_tpu_torch/obs/flight.py",
+            "bucketeer_tpu_torch/obs/export.py",
+            "bucketeer_tpu_torch/obs/logctx.py",
+            "bucketeer_tpu_torch/obs/slo.py",
+            "bucketeer_tpu_torch/server/metrics.py",
+            "chip_smoke.py", "t1_ab.py", "sched_pool_ab.py"} <= rel
     offenders = []
     for path in paths:
         with open(path) as fh:
@@ -96,7 +117,7 @@ def test_port_sources_name_no_jax_import():
 
 def test_port_sources_name_no_ml_dtypes():
     """bfloat16 is torch.bfloat16 in the port: no source line of the port
-    or of chip_smoke.py names ml_dtypes, in code or in prose."""
+    or of its card scripts names ml_dtypes, in code or in prose."""
     offenders = []
     for path in _port_sources():
         with open(path) as fh:

@@ -1,8 +1,8 @@
 """converters/reader.py CudaReader (on the CPU) and its two cache tiers:
 hit/miss counters, byte-budget eviction, file-identity invalidation,
 read-only entries, clamp-normalized region keys, the single-flight
-stream-index tier; and what the port does not serve yet (the scheduler
-hook) or cannot (a card without CUDA)."""
+stream-index tier; reads through a scheduler (admitted misses at read
+priority); and what the port cannot serve (a card without CUDA)."""
 import dataclasses
 import os
 import threading
@@ -449,15 +449,86 @@ def test_read_id_and_missing_files(tmp_path, monkeypatch):
         reader.read(str(bad))
 
 
-def test_unported_surfaces_raise(tmp_path):
-    path, _ = _write_jp2(tmp_path, "u.jp2")
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        CudaReader(device="cpu", scheduler=object())
-    # Coefficient reads are served now (tests/test_torch_coeffs.py holds
-    # them against the JAX package); only the scheduler hook is unported.
-    cs = _reader().read_coefficients(path)
-    assert cs.reversible and all(t.device.type == "cpu"
-                                 for t in cs.bands.values())
+def test_scheduler_and_coefficient_reads(tmp_path):
+    """A reader with a CPU scheduler: a miss (full and region, pixels
+    and coefficients) runs as an admitted read job and equals the direct
+    read; a hit does not go through the scheduler."""
+    from bucketeer_tpu_torch.engine.scheduler import EncodeScheduler
+
+    path, img = _write_region_jp2(tmp_path, "u.jp2")
+    sched = EncodeScheduler(device="cpu", window_s=0)
+    sink = Metrics()
+    sched.set_metrics_sink(sink)
+    reader = _reader(cache_mb=4, scheduler=sched)
+    direct = _reader(cache_mb=0)
+    try:
+        for kw in ({}, {"region": (10, 20, 30, 25)}, {"reduce": 1}):
+            got = reader.read(path, **kw)
+            np.testing.assert_array_equal(got, direct.read(path, **kw))
+            assert reader.read(path, **kw) is got            # a hit
+        cs = reader.read_coefficients(path)
+        ref = decode_to_coefficients(open(path, "rb").read(), device="cpu")
+        assert cs.reversible and all(t.device.type == "cpu"
+                                     for t in cs.bands.values())
+        for key, band in ref.bands.items():
+            assert torch.equal(cs.bands[key], band)
+    finally:
+        sched.close()
+    np.testing.assert_array_equal(direct.read(path), img)
+    rep = sink.report()
+    assert rep["stages"]["decode.queue_wait"]["count"] == 4   # misses only
+    assert rep["stages"]["decode.request"]["count"] == 4
+
+
+def test_scheduler_read_is_granted_before_a_queued_encode(tmp_path,
+                                                          monkeypatch):
+    """With the scheduler's one slot held, a queued encode and then a
+    read: the read (PRIORITY_READ) is granted first."""
+    from bucketeer_tpu_torch.engine.scheduler import EncodeScheduler
+
+    path, img = _write_jp2(tmp_path, "p.jp2")
+    sched = EncodeScheduler(device="cpu", max_concurrent=1, window_s=0)
+    reader = _reader(cache_mb=0, scheduler=sched)
+    order = []
+    real = reader_mod.decode
+
+    def decode(*a, **kw):
+        order.append("read")
+        return real(*a, **kw)
+
+    monkeypatch.setattr(reader_mod, "decode", decode)
+    release, holding = threading.Event(), threading.Event()
+
+    def hold():
+        holding.set()
+        release.wait(timeout=60)
+
+    out = {}
+    threads = [threading.Thread(target=lambda: sched.submit(hold))]
+    threads[0].start()
+    try:
+        assert holding.wait(timeout=60)
+        for name, fn in (
+                ("encode", lambda: sched.submit(
+                    lambda: order.append("encode"))),
+                ("read", lambda: out.setdefault("px", reader.read(path)))):
+            n = sched.stats()["waiting"] + 1
+            t = threading.Thread(target=fn, name=name)
+            t.start()
+            threads.append(t)
+            deadline = time.monotonic() + 60
+            while sched.stats()["waiting"] < n:
+                assert time.monotonic() < deadline
+                time.sleep(0.005)
+        release.set()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+    finally:
+        release.set()
+        sched.close()
+    assert order == ["read", "encode"]
+    np.testing.assert_array_equal(out["px"], img)
 
 
 def test_card_without_cuda_raises(monkeypatch):

@@ -242,21 +242,22 @@ def test_services_check_polled_between_chunks():
 
 
 def test_launch_hook_routes_device_chunks():
-    """``launch(rows, floors, backend) -> (blocks, n_syms, seconds)``
-    takes every chunk of the device backend; the bytes do not depend on
-    the chunking."""
+    """``launch(rows, floors, backend, device) -> (blocks, n_syms,
+    seconds)`` takes every chunk of the device backend, with the device
+    the caller asked for; the bytes do not depend on the chunking."""
     rng = np.random.default_rng(29)
     x = rng.integers(-1, 2, size=(3 * 4096,), dtype=np.int8)
     seen = []
 
-    def launch(rows, floors, backend):
-        seen.append((len(rows), backend))
-        return pcodec.encode_chunk_device(rows, floors, backend, "cpu")
+    def launch(rows, floors, backend, device):
+        seen.append((len(rows), backend, device))
+        return pcodec.encode_chunk_device(rows, floors, backend, device)
 
     with tensor_services(launch=launch):
         blob = encode_tensor(x, device="device", chunk_blocks=2,
                              torch_device="cpu")
-    assert seen == [(2, "device"), (1, "device")]
+    cpu = torch.device("cpu")
+    assert seen == [(2, "device", cpu), (1, "device", cpu)]
     assert blob == encode_tensor(x, device="host")
 
 
