@@ -13,7 +13,6 @@ import threading
 from .. import obs
 from ..codec import tiff
 from ..codec.encoder import EncodeParams
-from ..engine import scheduler as sched_mod
 from .base import Conversion, ConverterError, output_path
 
 LOSSY_RATE = 3.0    # reference: -rate 3 (KakaduConverter.java:43)
@@ -86,6 +85,10 @@ class CudaConverter:
         except Exception as exc:
             raise ConverterError(
                 f"cannot read {source_path}: {exc}") from exc
+
+        # Imported here: the engine package imports the converters
+        # (a module-level import would cycle).
+        from ..engine import scheduler as sched_mod
 
         h, w = img.shape[:2]
         params = self.encode_params(h, w, bitdepth, conversion)

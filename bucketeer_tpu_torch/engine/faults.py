@@ -1,32 +1,39 @@
-"""Deterministic fault injection: a copy of the JAX package's
-bucketeer_tpu/engine/faults.py.
+"""Deterministic fault injection for the ingest path: a copy of the JAX
+package's bucketeer_tpu/engine/faults.py.
 
-Failure-prone moments are marked with :func:`point` — a no-op
-module-global load plus a ``None`` check in production. A test installs
-a :class:`FaultPlan` that decides, deterministically, which hits of
-which site raise what (or kill the process: :class:`ProcessKilled`, or a
-hard ``os._exit`` for real kill-and-restart smokes).
+The batch path (``s3.py``, ``bus.py``, ``store.py``, ``journal.py``,
+``batch.py``, ``scheduler.py``) marks its failure-prone moments with
+:func:`point` — a no-op module-global load plus a ``None`` check in
+production. A test (or the chaos CLI) installs a :class:`FaultPlan`
+that decides, deterministically, which hits of which site raise what:
+S3 5xx/timeout bursts, converter crashes, lock timeouts, journal I/O
+errors, and process kills (:class:`ProcessKilled`, or a hard
+``os._exit`` for real kill-and-restart smokes).
 
 Every decision a plan makes is appended to ``plan.trace``, so two runs
-of the same seeded plan produce identical traces.
+of the same seeded scenario produce identical traces. Named seeded
+scenarios live in :data:`SCENARIOS`.
 
-Injection sites of this package (grep for ``faults.point``):
+Injection sites (grep for ``faults.point``):
 
 ========================  ====================================================
-``sched.submit``          scheduler admission (forced QueueFull)
+``s3.put``                before the S3 client call (5xx / timeout bursts)
+``bus.request``           before enqueueing a bus request
+``store.lock``            before acquiring the job lock (lock timeouts)
+``journal.write``         before a WAL append (journal-unavailable, kills)
+``batch.convert``         before the batch converter runs an item
+``batch.status``          between derivative upload and status write — the
+                          at-least-once window (kills land here)
+``sched.submit``          encode-scheduler admission (forced QueueFull)
 ========================  ====================================================
-
-The JAX package's S3, bus, store, journal and batch sites, and its
-named scenarios that fault them, come with the service stack (ROADMAP
-A.9b).
 """
 from __future__ import annotations
 
 import os
 import random
 import threading
-from dataclasses import dataclass
-from typing import Callable
+from dataclasses import dataclass, field
+from typing import Any, Callable
 
 _PLAN = None   # the installed FaultPlan; None in production
 
@@ -57,8 +64,8 @@ def point(site: str, **ctx) -> None:
 class ProcessKilled(BaseException):
     """Simulated process death at an injection point. Deliberately a
     ``BaseException``: the engine's ``except Exception`` failure
-    handling must not swallow it — only a test harness's restart loop
-    catches it, as a real SIGKILL skips ``finally``
+    handling must not swallow it — only the test harness's restart
+    driver catches it, exactly like a real SIGKILL skips ``finally``
     blocks in spirit (we do run them; what matters is that no status
     is written past the kill point)."""
 
@@ -172,3 +179,79 @@ class FaultPlan:
                 os.fsync(fh.fileno())
         except OSError:
             pass                      # tracing must never mask the run
+
+
+# -- named seeded scenarios ---------------------------------------------
+#
+# Each factory returns a fresh plan for a seed; running the same
+# (name, seed) twice yields identical ``plan.trace`` lists and, because
+# every downstream retry delay draws from seeded RNGs, an identical
+# ingest outcome. Exceptions are imported lazily to keep this module
+# import-free of the engine (the engine imports *us*).
+
+def _s3_outage(seed: int) -> FaultPlan:
+    """Permanent S3 5xx outage: every put fails until the budget is
+    spent — dead letters + open breaker, never a spin."""
+    from .s3 import S3Error
+    return FaultPlan(seed).at(
+        "s3.put", lambda: S3Error(503, "injected outage"), times=10**9)
+
+
+def _s3_burst(seed: int) -> FaultPlan:
+    """Seeded 5xx burst: each put fails with p=0.5 for the first 40
+    eligible hits, then the weather clears — the job must still finish."""
+    from .s3 import S3Error
+    return FaultPlan(seed).at(
+        "s3.put", lambda: S3Error(500, "injected burst"), times=40,
+        p=0.5)
+
+
+def _s3_timeout(seed: int) -> FaultPlan:
+    """S3 timeouts (treated as retryable 5xx-class) for the first 3
+    puts."""
+    return FaultPlan(seed).at(
+        "s3.put", lambda: TimeoutError("injected S3 timeout"), times=3)
+
+
+def _converter_crash(seed: int) -> FaultPlan:
+    """The converter dies on its first two items (then recovers) — the
+    items must resolve FAILED or be retried, never stranded."""
+    from ..converters import ConverterError
+    return FaultPlan(seed).at(
+        "batch.convert", lambda: ConverterError("injected crash"),
+        times=2)
+
+
+def _lock_storm(seed: int) -> FaultPlan:
+    """Transient job-lock timeouts on the first two status writes — the
+    status-update retry loop must absorb them."""
+    from .store import LockTimeout
+    return FaultPlan(seed).at(
+        "store.lock", lambda: LockTimeout("injected lock timeout"),
+        times=2)
+
+
+def _kill_mid_job(seed: int) -> FaultPlan:
+    """Simulated process death in the at-least-once window (after the
+    derivative upload, before the status write) of the second item."""
+    return FaultPlan(seed).at("batch.status", after=1, kill=True)
+
+
+SCENARIOS: dict[str, Callable[[int], FaultPlan]] = {
+    "s3_outage": _s3_outage,
+    "s3_burst": _s3_burst,
+    "s3_timeout": _s3_timeout,
+    "converter_crash": _converter_crash,
+    "lock_storm": _lock_storm,
+    "kill_mid_job": _kill_mid_job,
+}
+
+
+def make_plan(name: str, seed: int = 0) -> FaultPlan:
+    try:
+        factory = SCENARIOS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown fault scenario {name!r}; "
+            f"have: {', '.join(sorted(SCENARIOS))}")
+    return factory(seed)

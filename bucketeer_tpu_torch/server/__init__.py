@@ -1,2 +1,4 @@
-"""The service layer of the port. Only the metrics sink
-(:mod:`.metrics`) is here yet; the HTTP app comes with ROADMAP A.9b."""
+"""The service layer of the port: the metrics sink (:mod:`.metrics`),
+the aiohttp app (:mod:`.app`, ``build_app``) and its entry point
+(:mod:`.main`). Importing the package loads neither aiohttp nor the app,
+so the metrics sink imports where aiohttp is not installed."""

@@ -105,7 +105,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    admission on a scheduler of its own: QueueFull with retry_after,
    DeadlineExceeded, and close() failing the queued waiter with
    SchedulerClosed without a hang;
-9. one JSON line with every kernel, then the card line and the result
+9. the service on the card, below HTTP (the card's machine has no
+   aiohttp): an Engine(device="cuda") with a fake S3 bucket and a
+   recording Slack client, in one asyncio loop, the launch counts set to
+   0 before each part and read after: single-image requests on the bus
+   (IMAGE_WORKER, lossless and lossy of phase 5's TIFF, and a missing
+   file, which must fail), each object in the bucket equal to phase 5's
+   fused file and each request's fused_t1 launches equal to phase 5's; a
+   4-item CSV job (phase 5's and phase 8's images, twice each) through
+   job_factory and start_job on a journaled store, every item succeeded
+   with its IIIF URL, every object equal to its direct encode, a Slack
+   message naming the job, and the journal replaying to the finished
+   job; a 2-item job on a second Engine configured for the CX/D split,
+   objects equal to the fused files;
+10. one JSON line with every kernel, then the card line and the result
    line.
 """
 from __future__ import annotations
@@ -1024,9 +1037,10 @@ def main_path(conv, src: str, img, split: bool) -> dict:
     path = "split" if split else "fused"
     kernel = "cxd_scan" if split else "fused_t1"
     real = getattr(cxd, kernel)
-    files, walls = {}, {}
+    files, walls, per_conv = {}, {}, {}
     reset_counts()
     for conversion in (Conversion.LOSSLESS, Conversion.LOSSY):
+        before = read_counts()[kernel]
         timer = LaunchTimer(cxd_scan if split else fused_t1, real,
                             _scan_volume if split else _fused_volume)
         setattr(cxd, kernel, timer)
@@ -1056,6 +1070,7 @@ def main_path(conv, src: str, img, split: bool) -> dict:
             cxd._fetch_block_rows = real_fetch
         kms = timer.kernel_ms()
         n = len(timer.launches)
+        per_conv[conversion] = read_counts()[kernel] - before
         bounds = timer.bounds(scan_bound if split else fused_bound)
         big = max(range(n), key=lambda i: timer.launches[i][2][1].shape[0])
         st = conv.last_stats
@@ -1091,7 +1106,8 @@ def main_path(conv, src: str, img, split: bool) -> dict:
     for name, launched in want.items():
         if (counts[name] > 0) != launched:
             fail(f"main {path}: {name} launched {counts[name]} times")
-    return {"files": files, "walls": walls, "counts": counts}
+    return {"files": files, "walls": walls, "counts": counts,
+            "per_conversion": per_conv}
 
 
 def phase_main(img, workdir) -> dict:
@@ -1122,6 +1138,7 @@ def phase_main(img, workdir) -> dict:
     return {"counts": {p: r["counts"] for p, r in runs.items()},
             "src": src, "files": runs["fused"]["files"],
             "walls": runs["fused"]["walls"],
+            "launches": runs["fused"]["per_conversion"],
             "split_walls": runs["split"]["walls"],
             "lossy_groups": groups}
 
@@ -2250,6 +2267,293 @@ def phase_admission(img, want: bytes, conv) -> None:
         f"{sink.report()['counters']}")
 
 
+SERVICE_BATCH = 4           # items of the fused CSV job (b)
+SERVICE_SPLIT = 2           # items of the split CSV job (c)
+
+
+def _object(engine, key_part: str) -> bytes:
+    """The fake bucket's one object whose key holds ``key_part``."""
+    s3 = engine.s3_client
+    keys = [k for k in s3.metadata if key_part in k]
+    if len(keys) != 1:
+        fail(f"service: {len(keys)} objects named {key_part!r} in the "
+             f"fake bucket ({sorted(s3.metadata)})")
+    with open(os.path.join(s3.root, keys[0]), "rb") as fh:
+        return fh.read()
+
+
+def _service_engine(workdir: str, name: str, extra: dict,
+                    converter=None):
+    """An Engine(device="cuda") on a fake S3 bucket and a recording Slack
+    client under ``workdir``, its image mount ``workdir`` itself."""
+    from bucketeer_tpu_torch import config as cfg
+    from bucketeer_tpu_torch import features
+    from bucketeer_tpu_torch.engine import (Engine, FakeS3Client,
+                                            RecordingSlackClient)
+
+    config = cfg.Config.load(overrides={
+        cfg.S3_BUCKET: "smoke",
+        cfg.IIIF_URL: "https://iiif.smoke/iiif",
+        cfg.SLACK_CHANNEL_ID: "smoke",
+        cfg.FILESYSTEM_IMAGE_MOUNT: workdir,
+        cfg.FILESYSTEM_CSV_MOUNT: os.path.join(workdir, f"{name}-csv"),
+        cfg.S3_REQUEUE_DELAY: 0.05, **extra})
+    return Engine(config,
+                  flags=features.FeatureFlagChecker(
+                      static={features.FS_WRITE_CSV: True}),
+                  converter=converter,
+                  s3_client=FakeS3Client(os.path.join(workdir,
+                                                      f"{name}-s3")),
+                  slack_client=RecordingSlackClient(), device="cuda")
+
+
+async def _run_job(engine, name: str, rows: list, workdir: str) -> float:
+    """A CSV job through job_factory and start_job, as the app's upload
+    handler runs it, held to its output CSV and Slack message; returns
+    the wall until FINALIZE_JOB removed it from the store."""
+    import asyncio
+    import csv as csv_mod
+    import io
+
+    from bucketeer_tpu_torch import config as cfg
+    from bucketeer_tpu_torch import job_factory
+    from bucketeer_tpu_torch.engine import start_job
+    from bucketeer_tpu_torch.utils import path_prefix as pp
+
+    text = "Item ARK,File Name\n" + "".join(
+        f"{ark},{fname}\n" for ark, fname in rows)
+    prefix = pp.get_prefix(engine.config.get_str(cfg.FILESYSTEM_PREFIX),
+                           workdir)
+    job = job_factory.create_job(name, text, prefix=prefix)
+    job.slack_handle = "smoke"
+    async with engine.store.locked():
+        await asyncio.to_thread(engine.store.put, job)
+    t0 = time.perf_counter()
+    await start_job(job, engine.bus, engine.config, engine.flags,
+                    store=engine.store)
+    t_end = time.monotonic() + 600
+    while name in engine.store:
+        if time.monotonic() > t_end:
+            fail(f"service: job {name} did not finalize")
+        await asyncio.sleep(0.01)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = os.path.join(engine.config.get_str(cfg.FILESYSTEM_CSV_MOUNT),
+                       f"{name}.csv")
+    with open(out, encoding="utf-8") as fh:
+        table = list(csv_mod.DictReader(io.StringIO(fh.read())))
+    for row in table:
+        if row.get("Bucketeer State") != "succeeded" or not \
+                row.get("IIIF Access URL"):
+            fail(f"service: job {name} item {row.get('Item ARK')} ended "
+                 f"{row.get('Bucketeer State')!r}, IIIF Access URL "
+                 f"{row.get('IIIF Access URL')!r}")
+    if len(table) != len(rows):
+        fail(f"service: job {name}'s CSV has {len(table)} rows for "
+             f"{len(rows)} items")
+    msgs = engine.slack_client.messages
+    if not msgs or f"'{name}'" not in msgs[-1]["text"]:
+        fail(f"service: no Slack message names job {name}: {msgs}")
+    return wall
+
+
+def _check_journal(journal_dir: str, name: str, items: int) -> str:
+    """The durable store after job ``name`` finished: its journal holds
+    the job's put, a dispatch and a SUCCEEDED resolve per item and the
+    remove; a JobStore reopened on a copy without the remove replays to
+    the finished job (every item SUCCEEDED, none remaining), and one
+    reopened on the directory itself recovers no live job."""
+    from bucketeer_tpu_torch.engine import JobStore
+    from bucketeer_tpu_torch.models import WorkflowState
+
+    def job_of(record):
+        job = record.get("job")
+        return job.get("name") if isinstance(job, dict) else job
+
+    path = os.path.join(journal_dir, "journal.jsonl")
+    with open(path, encoding="utf-8") as fh:
+        records = [r for r in map(json.loads, filter(str.strip, fh))
+                   if job_of(r) == name]
+    ops = [r["op"] for r in records]
+    want = ["put"] + ["dispatch"] * items + ["resolve"] * items + ["remove"]
+    if sorted(ops) != sorted(want) or ops[0] != "put" or \
+            ops[-1] != "remove":
+        fail(f"service: journal ops of {name}: {ops}")
+    states = {r.get("state") for r in records if r["op"] == "resolve"}
+    copy = tempfile.mkdtemp(prefix="chip-smoke-journal-")
+    try:
+        with open(os.path.join(copy, "journal.jsonl"), "w",
+                  encoding="utf-8") as fh:
+            for r in records[:-1]:
+                fh.write(json.dumps(r) + "\n")
+        replay = JobStore(journal_dir=copy)
+        job = replay.maybe_get(name)
+        if job is None or job.remaining() != 0 or any(
+                it.workflow_state != WorkflowState.SUCCEEDED
+                for it in job.items) or len(job.items) != items:
+            fail(f"service: the journal without its remove does not "
+                 f"replay to the finished job {name}")
+        replay.close()
+    finally:
+        shutil.rmtree(copy, ignore_errors=True)
+    reopened = JobStore(journal_dir=journal_dir)
+    live = reopened.names()
+    recovery = dict(reopened.recovery)
+    reopened.close()
+    if live:
+        fail(f"service: a reopened store recovers live jobs {live}")
+    return (f"journal ops {len(ops)} (put, {items} dispatch, {items} "
+            f"resolve {sorted(states)}, remove); replay without the "
+            f"remove: the job with {items} items SUCCEEDED, 0 remaining; "
+            f"reopened store: no live job, recovery {recovery}")
+
+
+def phase_service(main_res: dict, ref: dict, workdir: str) -> dict:
+    """Phase 9: the service on the card, below HTTP (the card's machine
+    has no aiohttp): an Engine(device="cuda") with a fake S3 bucket and a
+    recording Slack client, inside one asyncio loop after
+    engine.start(), the launch counts set to 0 before each part and read
+    after. (a) single-image requests on the bus as the app's load_image
+    sends them; (b) a CSV job of SERVICE_BATCH items on the fused path
+    with a journal directory; (c) a CSV job of SERVICE_SPLIT items on a
+    second Engine configured for the CX/D split."""
+    import asyncio
+
+    from bucketeer_tpu_torch import config as cfg
+    from bucketeer_tpu_torch import constants as c
+    from bucketeer_tpu_torch.converters import Conversion, CudaConverter
+    from bucketeer_tpu_torch.engine import IMAGE_WORKER
+    from bucketeer_tpu_torch.server.metrics import Metrics
+
+    src, src2 = main_res["src"], ref["src2"]
+    LL, LY = Conversion.LOSSLESS, Conversion.LOSSY
+    px = SIZE * SIZE
+    counts: dict = {}
+    journal = os.path.join(workdir, "service-journal")
+
+    def add(part: dict) -> None:
+        for k, v in part.items():
+            counts[k] = counts.get(k, 0) + v
+
+    async def single(engine) -> None:
+        for conversion in (LL, LY):
+            reset_counts()
+            t0 = time.perf_counter()
+            reply = await engine.bus.request_with_retry(IMAGE_WORKER, {
+                c.IMAGE_ID: f"svc-{conversion.value}", c.FILE_PATH: src,
+                c.CONVERSION_TYPE: conversion.value})
+            t_reply = time.perf_counter() - t0
+            if not reply.is_success:
+                fail(f"service single {conversion.value}: {reply.code} "
+                     f"{reply.message}")
+            while engine.image_worker.background:
+                await asyncio.sleep(0.005)
+            t_upload = time.perf_counter() - t0
+            part = read_counts()
+            add(part)
+            data = _object(engine, f"svc-{conversion.value}")
+            direct = main_res["walls"][conversion]
+            want_n = main_res["launches"][conversion]
+            say(f"service single {conversion.value}: reply {t_reply:.3f} s "
+                f"({t_reply / direct:.3f}x phase 5's direct convert "
+                f"{direct:.3f} s), upload landed at {t_upload:.3f} s; "
+                f"fused_t1 launches {part['fused_t1']} (phase 5: {want_n});"
+                f" object {len(data)} B equals phase 5's fused file: "
+                f"{data == main_res['files'][conversion]}")
+            if data != main_res["files"][conversion]:
+                fail(f"service single {conversion.value}: the uploaded "
+                     "object differs from phase 5's fused file")
+            if part["fused_t1"] != want_n:
+                fail(f"service single {conversion.value}: fused_t1 "
+                     f"launched {part['fused_t1']} times, phase 5 "
+                     f"{want_n}")
+        reply = await engine.bus.request_with_retry(IMAGE_WORKER, {
+            c.IMAGE_ID: "svc-missing",
+            c.FILE_PATH: os.path.join(workdir, "no-such-source.tif")})
+        say(f"service single missing source: success {reply.is_success}, "
+            f"code {reply.code}, {reply.message!r}")
+        if reply.is_success:
+            fail("service: a request for a missing file succeeded")
+
+    async def batch(engine) -> None:
+        rows = [(f"ark:/smoke/{k}{i}", os.path.basename(p))
+                for k in "ab" for i, p in ((1, src), (2, src2))]
+        sink = Metrics()
+        engine.scheduler.set_metrics_sink(sink)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            wall = await _run_job(engine, "smoke-job", rows, workdir)
+        finally:
+            engine.scheduler.set_metrics_sink(None)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        part = read_counts()
+        add(part)
+        want = {1: main_res["files"][LL], 2: ref["files2"][LL]}
+        for ark, _ in rows:
+            key = ark.replace(":", "%3A").replace("/", "%2F")
+            if _object(engine, key) != want[int(ark[-1])]:
+                fail(f"service batch: the object of {ark} differs from "
+                     "the direct encode of its image")
+        solo = 2 * (main_res["walls"][LL] + ref["walls2"][LL])
+        say(f"service batch: {SERVICE_BATCH}-item CSV job ({SIZE}x{SIZE} "
+            f"images 1 and 2, twice each, lossless) finalized, every item "
+            f"succeeded and every object equal to its direct encode; wall "
+            f"{wall:.3f} s, {SERVICE_BATCH * px / wall / 1e6:.3f} MPix/s "
+            f"aggregate, {solo / wall:.3f}x the sum of the solo walls "
+            f"({solo:.3f} s); {_stage_ms(sink, 'encode.queue_wait')}; "
+            f"{_stage_ms(sink, 'encode.request')}; fused_t1 launches "
+            f"{part['fused_t1']}; peak device memory {peak:.1f} MiB")
+        if part["fused_t1"] <= 0 or part["cxd_scan"]:
+            fail(f"service batch: launches {part}")
+        say("service journal: " + _check_journal(journal, "smoke-job",
+                                                 SERVICE_BATCH))
+
+    async def split(engine) -> None:
+        rows = [("ark:/smoke/s1", os.path.basename(src)),
+                ("ark:/smoke/s2", os.path.basename(src2))]
+        reset_counts()
+        wall = await _run_job(engine, "smoke-split-job", rows, workdir)
+        part = read_counts()
+        add(part)
+        want = {"s1": main_res["files"][LL], "s2": ref["files2"][LL]}
+        for ark, _ in rows:
+            key = ark.replace(":", "%3A").replace("/", "%2F")
+            if _object(engine, key) != want[ark[-2:]]:
+                fail(f"service split: the object of {ark} differs from "
+                     "the fused file of its image")
+        say(f"service split: {SERVICE_SPLIT}-item CSV job on an Engine "
+            f"with {cfg.DEVICE_CXD}=true, {cfg.DEVICE_MQ}=false finalized, "
+            f"objects equal to the fused files; wall {wall:.3f} s; "
+            f"cxd_scan launches {part['cxd_scan']}, fused_t1 "
+            f"{part['fused_t1']}")
+        if part["cxd_scan"] <= 0 or part["fused_t1"]:
+            fail(f"service split: launches {part}")
+
+    async def run() -> None:
+        engine = _service_engine(workdir, "service",
+                                 {cfg.JOB_JOURNAL_DIR: journal})
+        await engine.start()
+        try:
+            await single(engine)
+            await batch(engine)
+        finally:
+            await engine.close()
+        engine = _service_engine(
+            workdir, "service-split",
+            {cfg.DEVICE_CXD: "true", cfg.DEVICE_MQ: "false"},
+            converter=CudaConverter(device="cuda"))
+        await engine.start()
+        try:
+            await split(engine)
+        finally:
+            await engine.close()
+
+    asyncio.run(run())
+    say(f"service: launches in the service's runs {counts}")
+    return {"counts": counts}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -2291,6 +2595,9 @@ def main() -> None:
         sched = phase_scheduler(img, main_res, read_res, tensors, coeff,
                                 ref)
         say(f"phase 8 (the scheduler) {time.perf_counter() - t8:.1f} s")
+        t9 = time.perf_counter()
+        service = phase_service(main_res, ref, workdir)
+        say(f"phase 9 (the service) {time.perf_counter() - t9:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2298,12 +2605,13 @@ def main() -> None:
     counts = main_res["counts"]
     tl = tensors["launches"]
     sl = sched["counts"]
+    vl = service["counts"]
     launches = {"fused_t1": (counts["fused"]["fused_t1"] + tl["fused_t1"]
-                             + sl["fused_t1"]),
+                             + sl["fused_t1"] + vl["fused_t1"]),
                 "cxd_scan": (counts["split"]["cxd_scan"] + tl["cxd_scan"]
-                             + sl["cxd_scan"]),
+                             + sl["cxd_scan"] + vl["cxd_scan"]),
                 "probe": (counts["fused"]["probe"] + counts["split"]["probe"]
-                          + tl["probe"] + sl["probe"]),
+                          + tl["probe"] + sl["probe"] + vl["probe"]),
                 # No encode path runs mq_scan (the JAX package has no call
                 # site for mq_pallas either): its count is the whole run's,
                 # every launch a check against plain or fused_t1.
@@ -2312,12 +2620,14 @@ def main() -> None:
     paths = {"fused_t1": "fused main path (converts through the "
                          "process-wide scheduler); tensor codec, device "
                          "backend; the scheduler's concurrent converts and "
-                         "merged tensor launches (phase 8)",
+                         "merged tensor launches (phase 8); the service's "
+                         "single-image requests and fused CSV job (phase 9)",
              "cxd_scan": "split main path (through the process-wide "
                          "scheduler); tensor codec, replay backend; the "
-                         "scheduler's concurrent split converts (phase 8)",
-             "probe": "first launch of each main path, tensor encode and "
-                      "the scheduler's phase",
+                         "scheduler's concurrent split converts (phase 8); "
+                         "the service's split CSV job (phase 9)",
+             "probe": "first launch of each main path, tensor encode, "
+                      "the scheduler's phase and each service part",
              "mq_scan": "none: the oracle surface; launches of the whole "
                         "run's kernel checks"}
     source = {"fused_t1": "fused_t1.cu", "cxd_scan": "cxd_scan.cu",

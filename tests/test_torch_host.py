@@ -110,9 +110,19 @@ def test_plan_and_step_map_equal(shape):
 @pytest.mark.parametrize("rel", [
     "codec/rate.py", "codec/t2.py", "codec/codestream.py", "codec/jp2.py",
     "codec/tiff.py", "converters/base.py", "codec/decode/parser.py",
-    "codec/decode/index.py"])
+    "codec/decode/index.py",
+    # the service stack's host modules
+    "utils/__init__.py", "utils/path_prefix.py", "constants.py", "op.py",
+    "http_codes.py", "features.py", "config.py", "models.py",
+    "job_factory.py", "engine/journal.py", "engine/s3.py",
+    "engine/slack.py", "engine/workers.py", "converters/cli.py",
+    "server/openapi.yaml", "server/webroot/index.html",
+    "server/webroot/error.html", "server/webroot/success.html",
+    "server/webroot/docs/index.html",
+    "server/webroot/upload/csv/index.html"])
 def test_host_module_is_verbatim_copy(rel):
-    """The back half is copied, not re-implemented: same source text."""
+    """The back half and the service's host modules are copied, not
+    re-implemented: same source text."""
     with open(os.path.join(REPO, "bucketeer_tpu_torch", rel)) as fh:
         got = fh.read()
     with open(os.path.join(REPO, "bucketeer_tpu", rel)) as fh:
@@ -139,11 +149,14 @@ def _code_without_docstrings(path: str, cls: str | None = None) -> str:
 
 @pytest.mark.parametrize("rel,cls", [
     ("codec/decode/t1_dec.py", None), ("codec/decode/errors.py", None),
-    ("codec/mq.py", "MQDecoder")])
+    ("codec/mq.py", "MQDecoder"), ("engine/faults.py", None),
+    ("engine/chaos.py", None), ("engine/retry.py", None),
+    ("engine/bus.py", None), ("engine/store.py", None)])
 def test_decode_code_is_a_copy(rel, cls):
-    """The read path's host Tier-1, error types and MQ decoder are the
-    JAX package's code; only docstrings that name the other package's
-    modules differ."""
+    """The read path's host Tier-1, error types and MQ decoder, and the
+    engine's fault injection, chaos CLI, retry policy, bus and job store,
+    are the JAX package's code; only docstrings and comments that name
+    the other package's modules or its history differ."""
     got, ref = (_code_without_docstrings(os.path.join(REPO, pkg, rel), cls)
                 for pkg in ("bucketeer_tpu_torch", "bucketeer_tpu"))
     assert got == ref

@@ -55,7 +55,30 @@ def test_port_imports_no_jax_and_no_jax_package():
             "bucketeer_tpu_torch.obs.export",
             "bucketeer_tpu_torch.obs.logctx",
             "bucketeer_tpu_torch.obs.slo",
-            "bucketeer_tpu_torch.server.metrics"} <= set(res["modules"])
+            "bucketeer_tpu_torch.obs.__main__",
+            "bucketeer_tpu_torch.server.metrics",
+            "bucketeer_tpu_torch.server.app",
+            "bucketeer_tpu_torch.server.main",
+            "bucketeer_tpu_torch.utils.path_prefix",
+            "bucketeer_tpu_torch.constants",
+            "bucketeer_tpu_torch.op",
+            "bucketeer_tpu_torch.http_codes",
+            "bucketeer_tpu_torch.features",
+            "bucketeer_tpu_torch.config",
+            "bucketeer_tpu_torch.models",
+            "bucketeer_tpu_torch.job_factory",
+            "bucketeer_tpu_torch.converters.cli",
+            "bucketeer_tpu_torch.converters.factory",
+            "bucketeer_tpu_torch.engine.retry",
+            "bucketeer_tpu_torch.engine.bus",
+            "bucketeer_tpu_torch.engine.journal",
+            "bucketeer_tpu_torch.engine.store",
+            "bucketeer_tpu_torch.engine.s3",
+            "bucketeer_tpu_torch.engine.slack",
+            "bucketeer_tpu_torch.engine.workers",
+            "bucketeer_tpu_torch.engine.batch",
+            "bucketeer_tpu_torch.engine.core",
+            "bucketeer_tpu_torch.engine.chaos"} <= set(res["modules"])
     bad = [m for m in res["new"]
            if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "bucketeer_tpu" or m.startswith("bucketeer_tpu.")
@@ -100,6 +123,23 @@ def test_port_sources_name_no_jax_import():
             "bucketeer_tpu_torch/obs/logctx.py",
             "bucketeer_tpu_torch/obs/slo.py",
             "bucketeer_tpu_torch/server/metrics.py",
+            "bucketeer_tpu_torch/server/app.py",
+            "bucketeer_tpu_torch/server/main.py",
+            "bucketeer_tpu_torch/obs/__main__.py",
+            "bucketeer_tpu_torch/config.py",
+            "bucketeer_tpu_torch/models.py",
+            "bucketeer_tpu_torch/job_factory.py",
+            "bucketeer_tpu_torch/converters/cli.py",
+            "bucketeer_tpu_torch/converters/factory.py",
+            "bucketeer_tpu_torch/engine/bus.py",
+            "bucketeer_tpu_torch/engine/journal.py",
+            "bucketeer_tpu_torch/engine/store.py",
+            "bucketeer_tpu_torch/engine/s3.py",
+            "bucketeer_tpu_torch/engine/slack.py",
+            "bucketeer_tpu_torch/engine/workers.py",
+            "bucketeer_tpu_torch/engine/batch.py",
+            "bucketeer_tpu_torch/engine/core.py",
+            "bucketeer_tpu_torch/engine/chaos.py",
             "chip_smoke.py", "t1_ab.py", "sched_pool_ab.py"} <= rel
     offenders = []
     for path in paths:
@@ -125,3 +165,35 @@ def test_port_sources_name_no_ml_dtypes():
                 if "ml_dtypes" in line:
                     offenders.append(f"{path}:{n}: {line.strip()}")
     assert offenders == []
+
+
+_BLOCKED = """
+import importlib.abc, json, sys
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("aiohttp", "PIL"):
+            raise ImportError(f"{name} is not installed here")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+import bucketeer_tpu_torch.engine
+import bucketeer_tpu_torch.server.metrics
+import bucketeer_tpu_torch.converters
+from bucketeer_tpu_torch.engine import Engine, FakeS3Client
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("aiohttp", "PIL"))))
+"""
+
+
+def test_card_path_imports_without_aiohttp_and_pil():
+    """The card's machine has neither aiohttp nor PIL: the engine, the
+    metrics sink and the converters import there (only the HTTP app, its
+    entry point and the real S3/Slack clients need aiohttp)."""
+    out = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=REPO,
+                         capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

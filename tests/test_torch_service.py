@@ -1,0 +1,508 @@
+"""The port's service stack against the JAX package's: one request script
+drives both aiohttp apps, each on its own stub converter, fake S3 bucket
+and recording Slack client in a directory of its own, and every answer
+must be the same — status codes, content types, JSON bodies, HTML pages,
+fake-bucket objects, Slack messages and output CSVs.
+
+The one allowed difference is ``/config``'s ``converters`` key, where the
+port reports ``"cuda"`` for the JAX app's ``"tpu"`` (ALLOWED_DIFFERENCE).
+Values that carry wall-clock time (timings, request ids, ``/metrics``
+seconds, uptime) are compared by key; counters by value. Paths are
+compared after each world's root directory is replaced by ``<ROOT>``.
+
+The chaos CLI (``python -m <package>.engine.chaos``, kill then resume)
+prints the same summary, output-CSV sha256 included, for both packages.
+"""
+import asyncio
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+from aiohttp import FormData
+
+import bucketeer_tpu.engine.faults as j_faults
+import bucketeer_tpu.engine.scheduler as j_sched
+import bucketeer_tpu_torch.engine.faults as t_faults
+import bucketeer_tpu_torch.engine.scheduler as t_sched
+from bucketeer_tpu import config as j_cfg
+from bucketeer_tpu import features as j_features
+from bucketeer_tpu.converters import ConverterError as JConverterError
+from bucketeer_tpu.engine import Engine as JEngine
+from bucketeer_tpu.engine import FakeS3Client as JFakeS3
+from bucketeer_tpu.engine import RecordingSlackClient as JSlack
+from bucketeer_tpu.server.app import build_app as j_build_app
+from bucketeer_tpu_torch import config as t_cfg
+from bucketeer_tpu_torch import features as t_features
+from bucketeer_tpu_torch.converters import ConverterError as TConverterError
+from bucketeer_tpu_torch.engine import Engine as TEngine
+from bucketeer_tpu_torch.engine import FakeS3Client as TFakeS3
+from bucketeer_tpu_torch.engine import RecordingSlackClient as TSlack
+from bucketeer_tpu_torch.server.app import build_app as t_build_app
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# /config's converter report names the in-process encoder by package.
+ALLOWED_DIFFERENCE = {("converters", "tpu"): ("converters", "cuda")}
+
+CSV_TEXT = "Item ARK,File Name\nark:/1/a,imgA.tif\nark:/1/b,imgB.tif\n"
+
+PACKAGES = {
+    "jax": dict(cfg=j_cfg, features=j_features, Engine=JEngine,
+                FakeS3=JFakeS3, Slack=JSlack, build_app=j_build_app,
+                ConverterError=JConverterError, sched=j_sched,
+                faults=j_faults, engine_kw={}),
+    "torch": dict(cfg=t_cfg, features=t_features, Engine=TEngine,
+                  FakeS3=TFakeS3, Slack=TSlack, build_app=t_build_app,
+                  ConverterError=TConverterError, sched=t_sched,
+                  faults=t_faults, engine_kw={"device": "cpu"}),
+}
+
+
+class StubConverter:
+    """tests/test_api.py's stub, raising the given package's
+    ConverterError for ``fail_ids``."""
+
+    def __init__(self, tmpdir, error, fail_ids=()):
+        self.tmpdir = str(tmpdir)
+        self.error = error
+        self.fail_ids = set(fail_ids)
+
+    def convert(self, image_id, source_path, conversion=None):
+        if image_id in self.fail_ids:
+            raise self.error("stub fail")
+        out = os.path.join(self.tmpdir, image_id.replace("/", "_") + ".jpx")
+        with open(out, "wb") as fh:
+            fh.write(b"JPX!")
+        return out
+
+
+class BusyConverter:
+    """Every convert meets a full encode queue (the package's
+    QueueFull)."""
+
+    def __init__(self, queue_full):
+        self.queue_full = queue_full
+
+    def convert(self, image_id, source_path, conversion=None):
+        raise self.queue_full(4, 7.0)
+
+
+class World:
+    """One package's app, engine, fake bucket and Slack recorder under a
+    root directory of its own."""
+
+    def __init__(self, pkg, root, overrides=None, flags=None,
+                 converter="stub"):
+        p = PACKAGES[pkg]
+        self.pkg, self.root = pkg, root
+        self.faults = p["faults"]
+        cfg = p["cfg"]
+        for name in ("imgA.tif", "imgB.tif", "one.tif", "bad.tif"):
+            (root / name).write_bytes(b"II*\x00")
+        config = cfg.Config.load(overrides={
+            cfg.IIIF_URL: "http://iiif.test/iiif",
+            cfg.SLACK_CHANNEL_ID: "chan",
+            cfg.FILESYSTEM_CSV_MOUNT: str(root / "csv-mount"),
+            cfg.FILESYSTEM_IMAGE_MOUNT: str(root),
+            cfg.S3_REQUEUE_DELAY: 0.01,
+            **{k: v.replace("<ROOT>", str(root)) for k, v in
+               (overrides or {}).items()}})
+        if converter == "busy":
+            conv = BusyConverter(p["sched"].QueueFull)
+        else:
+            conv = StubConverter(root, p["ConverterError"],
+                                 fail_ids={"bad"})
+        self.engine = p["Engine"](
+            config,
+            flags=p["features"].FeatureFlagChecker(static={
+                p["features"].FS_WRITE_CSV: True, **(flags or {})}),
+            converter=conv,
+            s3_client=p["FakeS3"](str(root / "s3")),
+            slack_client=p["Slack"](), **p["engine_kw"])
+        self.app = p["build_app"](self.engine, job_delete_timeout=0.1)
+        self.client = None
+        self.log = []
+
+    def norm(self, value):
+        """``value`` with this world's root directory replaced."""
+        root = str(self.root)
+        if isinstance(value, str):
+            return value.replace(root, "<ROOT>")
+        if isinstance(value, dict):
+            return {self.norm(k): self.norm(v) for k, v in value.items()}
+        if isinstance(value, (list, tuple)):
+            return [self.norm(v) for v in value]
+        return value
+
+    async def call(self, step, method, path, **kw):
+        """Send one request; log what must match between the apps."""
+        resp = await self.client.request(method, path,
+                                         allow_redirects=False, **kw)
+        if resp.content_type == "application/json":
+            body = await resp.json()
+        else:
+            body = await resp.text()
+        entry = {"step": step, "status": resp.status,
+                 "content_type": resp.content_type,
+                 "body": self.norm(body)}
+        for header in ("Retry-After", "Location"):
+            if header in resp.headers:
+                entry[header] = resp.headers[header]
+        self.log.append(entry)
+        return resp.status, body
+
+    def bucket(self):
+        """Every object in the fake bucket, by key, with its metadata."""
+        s3 = self.engine.s3_client
+        out = {}
+        for d, _, files in os.walk(self.root / "s3"):
+            for f in files:
+                path = os.path.join(d, f)
+                key = os.path.relpath(path, self.root / "s3")
+                with open(path, "rb") as fh:
+                    out[key] = fh.read()
+        return {"objects": out, "metadata": self.norm(s3.metadata)}
+
+    def outputs(self):
+        mount = self.root / "csv-mount"
+        csvs = ({f: (mount / f).read_text() for f in os.listdir(mount)}
+                if mount.exists() else {})
+        return {"bucket": self.bucket(),
+                "slack": self.norm(self.engine.slack_client.messages),
+                "csv": self.norm(csvs)}
+
+
+def _metrics_delta(before, after):
+    """The part of two /metrics reports that the script decides: the
+    stages it timed (by name), its counter increments (by value), the
+    breaker section (by value), the sections present (by key)."""
+    def count(rep, k):
+        return rep["stages"].get(k, {}).get("count", 0)
+    stages = sorted(k for k in after["stages"]
+                    if count(after, k) != count(before, k))
+    c0, c1 = before.get("counters", {}), after.get("counters", {})
+    counters = {k: v - c0.get(k, 0) for k, v in c1.items()
+                if v != c0.get(k, 0)}
+    return {"stages": stages, "counters": counters,
+            "breakers": after.get("breakers"),
+            "has": sorted(k for k in ("uptime_s", "stages", "sched")
+                          if k in after)}
+
+
+async def _wait(predicate, rounds=400, delay=0.02):
+    for _ in range(rounds):
+        if predicate():
+            return True
+        await asyncio.sleep(delay)
+    return False
+
+
+def _csv_form(name="test-job", handle="tester", text=CSV_TEXT):
+    form = FormData()
+    form.add_field("csvFileToUpload", text.encode(),
+                   filename=f"{name}.csv", content_type="text/csv")
+    if handle is not None:
+        form.add_field("slack-handle", handle)
+    return form
+
+
+# --- the request scripts ---------------------------------------------------
+
+async def script_pages(w):
+    """Status, config, static pages, the router quirks, /metrics and
+    the debug surface's error answers."""
+    await w.call("status", "GET", "/status")
+    await w.call("config", "GET", "/config")
+    for page in ("/", "/index.html", "/upload/csv/", "/upload/csv/index.html",
+                 "/docs", "/docs/", "/docs/openapi.yaml"):
+        await w.call(f"page {page}", "GET", page)
+    await w.call("upload redirect", "GET", "/upload")
+    await w.call("upload/ redirect", "GET", "/upload/")
+    await w.call("unknown path", "GET", "/no/such/page")
+    await w.call("405 quirk", "POST", "/batch/jobs/ghost/item/true")
+    await w.call("405 quirk GET", "GET", "/batch/jobs/ghost/item/false")
+    await w.call("patch unknown job", "PATCH", "/batch/jobs/ghost/item/true")
+    await w.call("statuses unknown job", "GET", "/batch/jobs/ghost")
+    await w.call("delete unknown job", "DELETE", "/batch/jobs/ghost")
+    await w.call("jobs empty", "GET", "/batch/jobs")
+    await w.call("metrics bad format", "GET", "/metrics?format=bogus")
+    await w.call("trace unknown id", "GET", "/debug/trace/no-such-request")
+    await w.call("flight bad dump", "GET", "/debug/flight?dump=x")
+    await w.call("get image missing", "GET", "/images/no-such-derivative")
+    await w.call("coefficients missing", "GET",
+                 "/images/no-such-derivative/coefficients")
+    await w.call("tensor missing", "GET", "/tensors/no-such-tensor")
+    await w.call("tensor empty body", "POST", "/tensors/t1")
+    await w.call("tensor garbage body", "POST", "/tensors/t1",
+                 data=b"not an npy")
+
+
+async def script_single_image(w):
+    """loadImage: success (then the background upload), converter
+    failure, missing source."""
+    await w.call("load ok", "GET", f"/images/ark%3A%2F9%2Fz/{w.root}/one.tif")
+    assert await _wait(lambda: w.engine.s3_client.metadata)
+    assert await _wait(lambda: not w.engine.image_worker.background)
+    await w.call("load convert fails", "GET",
+                 f"/images/bad/{w.root}/bad.tif")
+    await w.call("load missing source", "GET",
+                 "/images/idx/tmp/nonexistent-source.tif")
+
+
+async def script_batch_inprocess(w):
+    """CSV upload in in-process mode: the batch converter does every
+    item; the job finalizes into the mount CSV and a Slack message.
+    Then the upload form's validation answers."""
+    await w.call("csv upload", "POST", "/batch/input/csv", data=_csv_form())
+    assert await _wait(lambda: "test-job" not in w.engine.store)
+    await w.call("jobs after finalize", "GET", "/batch/jobs")
+    await w.call("csv no slack handle", "POST", "/batch/input/csv",
+                 data=_csv_form(handle=None))
+    await w.call("csv duplicate header", "POST", "/batch/input/csv",
+                 data=_csv_form(text="Item ARK,File Name,File Name\nx,a,b\n"))
+    form = FormData()
+    form.add_field("slack-handle", "x")
+    await w.call("csv missing file", "POST", "/batch/input/csv", data=form)
+    await w.call("csv not multipart", "POST", "/batch/input/csv",
+                 data=b"plain body")
+
+
+async def script_batch_lambda(w):
+    """CSV upload in lambda mode: sources go to the lambda bucket, a
+    duplicate upload is refused, the fake Lambda PATCHes every item,
+    the job finalizes; a second job is deleted."""
+    await w.call("csv upload", "POST", "/batch/input/csv", data=_csv_form())
+    assert await _wait(lambda: len(w.engine.s3_client.metadata) == 2)
+    await w.call("duplicate job", "POST", "/batch/input/csv",
+                 data=_csv_form())
+    await w.call("jobs", "GET", "/batch/jobs")
+    status, body = await w.call("statuses", "GET", "/batch/jobs/test-job")
+    assert status == 200
+    await w.call("patch wrong item", "PATCH",
+                 "/batch/jobs/test-job/ark%3A%2F1%2Fnope/true")
+    await w.call("patch a", "PATCH",
+                 "/batch/jobs/test-job/ark%3A%2F1%2Fa/true")
+    await w.call("patch a replayed as false", "PATCH",
+                 "/batch/jobs/test-job/ark%3A%2F1%2Fa/false")
+    await w.call("statuses after a", "GET", "/batch/jobs/test-job")
+    await w.call("patch b", "PATCH",
+                 "/batch/jobs/test-job/ark%3A%2F1%2Fb/false")
+    assert await _wait(lambda: "test-job" not in w.engine.store)
+    await w.call("jobs after finalize", "GET", "/batch/jobs")
+    await w.call("csv upload 2", "POST", "/batch/input/csv",
+                 data=_csv_form(name="second-job",
+                                text=CSV_TEXT.replace("ark:/1/", "ark:/2/")))
+    assert await _wait(lambda: len(w.engine.s3_client.metadata) == 4)
+    await w.call("delete idle job", "DELETE", "/batch/jobs/second-job")
+    await w.call("delete again", "DELETE", "/batch/jobs/second-job")
+    await w.call("jobs after delete", "GET", "/batch/jobs")
+
+
+async def script_circuit_open(w):
+    """An open S3 circuit refuses a new job with 503 + Retry-After; once
+    it closes, the same upload runs to the end."""
+    breaker = w.engine.s3_breaker
+    for _ in range(breaker.threshold):
+        breaker.record_failure()
+    status, _ = await w.call("csv upload, circuit open", "POST",
+                             "/batch/input/csv", data=_csv_form())
+    assert status == 503
+    breaker.record_success()
+    await w.call("csv upload, circuit closed", "POST", "/batch/input/csv",
+                 data=_csv_form())
+    assert await _wait(lambda: "test-job" not in w.engine.store)
+
+
+async def script_journal_down(w):
+    """A job the journal cannot record is not accepted (503 +
+    Retry-After); the retried upload runs to the end from its durable
+    record."""
+    w.faults.install(w.faults.FaultPlan().at(
+        "journal.write", lambda: OSError("disk gone"), times=1))
+    try:
+        status, _ = await w.call("csv upload, journal down", "POST",
+                                 "/batch/input/csv", data=_csv_form())
+        assert status == 503
+        await w.call("jobs after refusal", "GET", "/batch/jobs")
+        await w.call("csv upload, journal back", "POST",
+                     "/batch/input/csv", data=_csv_form())
+        assert await _wait(lambda: "test-job" not in w.engine.store)
+    finally:
+        w.faults.install(None)
+
+
+async def script_queue_full(w):
+    """Encode-queue backpressure: 503 with the scheduler's Retry-After."""
+    status, _ = await w.call("load queue full", "GET",
+                             f"/images/busy/{w.root}/one.tif")
+    assert status == 503
+
+
+def _expect_uploads(n):
+    def check(out):
+        assert len(out["bucket"]["objects"]) == n
+    return check
+
+
+def _expect_job(states):
+    """The finalized job's CSV holds ``states``; Slack got its file."""
+    def check(out):
+        (csv,) = out["csv"].values()
+        assert sorted(line.rsplit(",", 2)[-2]
+                      for line in csv.strip().splitlines()[1:]) == states
+        assert "Bucketeer State" in csv and "IIIF Access URL" in csv
+        assert any("test-job" in m["text"] for m in out["slack"])
+    return check
+
+
+# name -> (script, World options, check of the JAX side's outputs)
+SCRIPTS = {
+    "pages": (script_pages, {}, _expect_uploads(0)),
+    "single_image": (script_single_image, {}, _expect_uploads(1)),
+    "batch_inprocess": (script_batch_inprocess, {},
+                        _expect_job(["succeeded", "succeeded"])),
+    "batch_lambda": (script_batch_lambda, {
+        "overrides": {"bucketeer.batch.mode": "lambda",
+                      j_cfg.LAMBDA_S3_BUCKET: "lambda-bucket"}},
+        _expect_job(["failed", "succeeded"])),
+    "queue_full": (script_queue_full, {"converter": "busy"},
+                   _expect_uploads(0)),
+    "circuit_open": (script_circuit_open, {},
+                     _expect_job(["succeeded", "succeeded"])),
+    "journal_down": (script_journal_down, {
+        "overrides": {j_cfg.JOB_JOURNAL_DIR: "<ROOT>/journal"}},
+        _expect_job(["succeeded", "succeeded"])),
+}
+
+
+def _allow(log):
+    """Apply ALLOWED_DIFFERENCE to a torch-side log."""
+    for entry in log:
+        body = entry["body"]
+        if isinstance(body, dict):
+            for (key, theirs), (_, ours) in ALLOWED_DIFFERENCE.items():
+                if key in body and ours in body[key]:
+                    body[key] = dict(body[key])
+                    body[key][theirs] = body[key].pop(ours)
+    return log
+
+
+@pytest.mark.parametrize("name", sorted(SCRIPTS))
+async def test_both_apps_answer_the_script_alike(name, tmp_path,
+                                                 aiohttp_client):
+    script, kw, check = SCRIPTS[name]
+    results = {}
+    for pkg in ("jax", "torch"):
+        root = tmp_path / pkg
+        root.mkdir()
+        w = World(pkg, root, **kw)
+        w.client = await aiohttp_client(w.app)
+        before = await (await w.client.get("/metrics")).json()
+        await script(w)
+        after = await (await w.client.get("/metrics")).json()
+        prom = await w.client.get("/metrics?format=prometheus")
+        results[pkg] = {
+            "log": w.log, "outputs": w.outputs(),
+            "metrics": _metrics_delta(before, after),
+            "prometheus": (prom.status, prom.content_type)}
+        await w.client.close()
+    j, t = results["jax"], results["torch"]
+    _allow(t["log"])
+    assert [e["step"] for e in j["log"]] == [e["step"] for e in t["log"]]
+    for je, te in zip(j["log"], t["log"]):
+        assert je == te, je["step"]
+    assert j["outputs"] == t["outputs"]
+    assert j["metrics"] == t["metrics"]
+    assert j["prometheus"] == t["prometheus"]
+    # The script did reach the service: its outputs are what it asked
+    # for, and its requests were timed.
+    check(j["outputs"])
+    assert j["metrics"]["stages"]
+
+
+def test_config_converters_is_the_one_difference(tmp_path):
+    """ALLOWED_DIFFERENCE is exactly the two packages' converter
+    reports: same keys apart from the encoder's name."""
+    from bucketeer_tpu.converters import available_converters as j_avail
+    from bucketeer_tpu_torch.converters import (
+        available_converters as t_avail)
+    j, t = j_avail(), t_avail()
+    assert j.pop("tpu") is True and t.pop("cuda") is True
+    assert j == t
+
+
+# --- the chaos CLI ---------------------------------------------------------
+
+def _chaos(pkg, workdir, *extra):
+    env = {**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu"}
+    return subprocess.run(
+        [sys.executable, "-m", f"{pkg}.engine.chaos", "--workdir",
+         str(workdir), "--items", "4", "--seed", "7", *extra],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
+
+
+def test_chaos_cli_summary_equals_jax(tmp_path):
+    """Kill after one resolved item (exit 137), then resume: both
+    packages' CLIs print the same summary and write the same CSV."""
+    summaries = {}
+    for pkg in ("bucketeer_tpu", "bucketeer_tpu_torch"):
+        workdir = tmp_path / pkg
+        killed = _chaos(pkg, workdir, "--kill-after", "1")
+        assert killed.returncode == 137, killed.stderr[-2000:]
+        resumed = _chaos(pkg, workdir, "--resume")
+        assert resumed.returncode == 0, resumed.stderr[-2000:]
+        summary = json.loads(resumed.stdout)
+        with open(summary["csv_path"], "rb") as fh:
+            assert hashlib.sha256(fh.read()).hexdigest() == \
+                summary["csv_sha256"]
+        summary["csv_path"] = os.path.relpath(summary["csv_path"],
+                                              workdir)
+        summaries[pkg] = summary
+    assert summaries["bucketeer_tpu"] == summaries["bucketeer_tpu_torch"]
+    assert summaries["bucketeer_tpu_torch"]["states"] == {"succeeded": 4}
+    assert summaries["bucketeer_tpu_torch"]["resolved_at_recovery"] == 1
+
+
+# --- the device of the service ---------------------------------------------
+
+def test_entry_points_default_to_cuda():
+    import inspect
+
+    from bucketeer_tpu_torch.converters import get_converter
+    from bucketeer_tpu_torch.server import main as t_main
+
+    for fn in (TEngine, t_build_app, get_converter):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert "--device" in inspect.getsource(t_main.main)
+    assert 'default="cuda"' in inspect.getsource(t_main.main)
+
+
+@pytest.mark.skipif(__import__("torch").cuda.is_available(),
+                    reason="checks the answer of a machine without CUDA")
+def test_service_on_cuda_raises_without_a_card(tmp_path):
+    """Without a CUDA device the service does not start on the CPU in
+    its place: Engine, build_app, the server's main and get_converter
+    raise on their default device."""
+    from bucketeer_tpu_torch.converters import get_converter
+    from bucketeer_tpu_torch.server import main as t_main
+
+    stub = StubConverter(tmp_path, TConverterError)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TEngine(converter=stub)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TEngine(device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        t_build_app()
+    from bucketeer_tpu_torch.obs import logctx
+    stamped = logctx.installed()
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            t_main.main(["--port", "1"])
+    finally:
+        if not stamped:          # main() installs the log stamping
+            logctx.uninstall()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_converter()
