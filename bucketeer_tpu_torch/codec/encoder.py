@@ -7,21 +7,31 @@ stats (codec/frontend.py) -> [device] fused EBCOT Tier-1, the CX/D scan
 and the MQ coder in one kernel per launch group (codec/cxd.py,
 kernels/fused_t1.py) — or, with ``device_mq=False, device_cxd=True``,
 the CX/D split: the CX/D scan alone on the device (kernels/cxd_scan.py)
-and the MQ replay of its symbols on the host (codec/t1_batch.py), with
-byte-identical output -> [host] PCRD-opt layer allocation (codec/rate.py)
--> Tier-2 packets with precincts, any of the five progressions,
-SOP/EPH/PLT markers and per-resolution tile-parts -> codestream ->
-JP2/JPX boxes.
+and the MQ replay of its symbols on the host (codec/t1_batch.py) — or,
+with ``device_mq=False`` and ``device_cxd`` unset or False, the host
+Tier-1: bit-planes packed on the device (front-end mode "rows"), the
+planes each block codes gathered and copied to the host, and context
+modeling and MQ coding there in C++ (t1_batch.encode_packed). All three
+give byte-identical output -> [host] PCRD-opt layer allocation
+(codec/rate.py) -> Tier-2 packets with precincts, any of the five
+progressions, SOP/EPH/PLT markers and per-resolution tile-parts ->
+codestream -> JP2/JPX boxes.
 
 Tiles are grouped by shape and cut into chunks of CHUNK_TILES tiles;
 each chunk's front-end and Tier-1 work is queued on the device's stream
 and the host waits only where it needs a result (the stats, then the
-finished byte segments or symbol streams).
+finished byte segments, symbol streams or packed payload).
+
+A tile grid whose sub-bands straddle the global 64x64 code-block grid
+(a tile size divisible by 2^levels but not by 64, e.g. 96 at 2 levels)
+cannot be blockified on the device: its planes come back to the host
+after the transform, and the host slices its code-blocks against the
+global cell grid and codes them (:func:`_legacy_tier1`).
 
 A scheduler (engine/scheduler.py) routes an encode through shared
 resources by installing :func:`pipeline_services` around it: the
-front-end dispatch goes to its device pool, the split's host replay to
-its shared host pool, the fused Tier-1 stage to its pipeline-stage hook,
+front-end dispatch goes to its device pool, the host Tier-1 work (the
+split's replay, the packed payload's coding) to its shared host pool, the fused Tier-1 stage to its pipeline-stage hook,
 and its deadline check is polled at each chunk dispatch. With no
 services installed the encoder runs its own private pipeline.
 
@@ -42,6 +52,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from .. import obs
 from . import codestream as cs
@@ -58,7 +69,7 @@ CBLK_EXP = 6  # 64x64 code-blocks (reference recipe Cblk={64,64})
 
 CHUNK_TILES = 8     # same-shape tiles per front-end batch
 OVERLAP_DEPTH = 2   # queued-but-unresolved chunks
-HOST_QUEUE_DEPTH = 2    # unfinished host replays before back-pressure
+HOST_QUEUE_DEPTH = 2    # unfinished host Tier-1 jobs before back-pressure
 
 # Optional per-stage timing/counter sink (server.metrics.Metrics): the
 # device-dispatch and host-coding segments of every encode, its Tier-1
@@ -131,8 +142,8 @@ class EncodeParams:
     # the fused device Tier-1 (MQ wins over device_cxd, as the JAX
     # package picks on a TPU). device_mq=False with device_cxd=True: the
     # CX/D split, device scan and host MQ replay. device_mq=False
-    # without device_cxd is the host Tier-1, which is not ported and
-    # raises NotImplementedError.
+    # without device_cxd: the host Tier-1 over bit-planes packed on the
+    # device (front-end mode "rows").
     device_cxd: bool | None = None
     device_mq: bool | None = None
 
@@ -317,8 +328,8 @@ def _grid_aligned(plan: TilePlan, origin: tuple) -> str:
       path applies. Holds for power-of-two tile grids.
     - ``"straddle"``: band geometry matches the local Mallat layout but a
       global 64-grid cell boundary cuts a band's interior (e.g. tile 96
-      at 2 levels) — that needs blocks sliced against the global cell
-      grid by a host Tier-1, which this package does not have.
+      at 2 levels) — the host Tier-1 path (_legacy_tier1) slices blocks
+      against the global cell grid instead.
     - ``"mismatch"``: the tile's *global* band rectangle disagrees with
       the local Mallat geometry (tile size not divisible by 2^levels,
       e.g. tile 50 at 2 levels: global LL height 12 vs local 13). No
@@ -339,6 +350,24 @@ def _grid_aligned(plan: TilePlan, origin: tuple) -> str:
         if bx0 % cb and (bx0 % cb) + slot.w > cb:
             state = "straddle"
     return state
+
+
+def _collect_blocks(band: _Band, specs: list, dests: list) -> None:
+    """Queue a band's code-blocks (global 64-grid cells intersecting the
+    tile-band rect, T.800 B.7) into the host Tier-1 batch — the path
+    for tile grids the device front-end cannot blockify."""
+    cx0, cx1, cy0, cy1 = band.cell_range
+    for cy in range(cy0, cy1):
+        for cx in range(cx0, cx1):
+            gy0 = max(cy << CBLK_EXP, band.by0)
+            gy1 = min((cy + 1) << CBLK_EXP, band.by1)
+            gx0 = max(cx << CBLK_EXP, band.bx0)
+            gx1 = min((cx + 1) << CBLK_EXP, band.bx1)
+            ly0, lx0 = gy0 - band.by0, gx0 - band.bx0
+            sl = (slice(ly0, ly0 + gy1 - gy0), slice(lx0, lx0 + gx1 - gx0))
+            specs.append((band.mags[sl], band.signs[sl], band.name,
+                          None if band.fracs is None else band.fracs[sl]))
+            dests.append((band, cy, cx))
 
 
 def _tile_bands(plan: TilePlan, origin: tuple):
@@ -550,6 +579,85 @@ def _band_weight(slot, gains) -> float:
     return (slot.quant.delta * g) ** 2
 
 
+def _legacy_tier1(groups: dict, plans: dict, img: np.ndarray,
+                  params: EncodeParams, used_mct: bool, gains,
+                  weight_of_slot: dict, device, tm: dict):
+    """Host Tier-1 over raw coefficient planes, for tile grids whose
+    sub-bands *straddle* global 64-grid cells (a tile size divisible by
+    2^levels but not a multiple of 64, e.g. 96): the device front-end
+    cannot blockify these, so each shape group is transformed on
+    ``device`` in one batch, its planes come back to the host, and the
+    code-blocks are sliced there, clipped to the global cell grid, and
+    coded by t1_batch.encode_blocks. Tile sizes whose global band rects
+    disagree with the local Mallat geometry never reach here —
+    encode_array raises for those. ``tm`` gains the transform and
+    copy-back seconds ("device") and the slicing and coding seconds
+    ("host").
+
+    Returns (tile_records, coded blocks, weights, qcd_values)."""
+    from .pipeline import extract_bands, run_tiles
+
+    specs: list = []
+    dests: list = []
+    tile_records = []
+    qcd_values = None
+    norms = _RCT_NORMS if params.lossless else _ICT_NORMS
+    for (th, tw), members in groups.items():
+        plan = plans[(th, tw)]
+        t0 = time.perf_counter()
+        batch = np.stack([img[y0:y0 + th, x0:x0 + tw]
+                          for _, y0, x0 in members])
+        planes = run_tiles(plan, batch, device=device)
+        t1_ = time.perf_counter()
+        tm["device"] += t1_ - t0
+        if qcd_values is None:
+            qcd_values = _qcd_values(plan)
+        for s in plan.slots:
+            weight_of_slot.setdefault((s.resolution, s.name),
+                                      _band_weight(s, gains))
+        for (tidx, y0, x0), tile_planes in zip(members, planes):
+            tcx1, tcy1 = x0 + plan.tile_w, y0 + plan.tile_h
+            comp_res = []
+            for c in range(plan.n_comps):
+                resolutions = []
+                for res_bands in extract_bands(tile_planes[c], plan):
+                    bands = []
+                    for slot, mags, signs, fracs in res_bands:
+                        bx0, bx1, by0, by1 = _band_rect(
+                            x0, tcx1, y0, tcy1, slot.resolution,
+                            slot.name, plan.levels)
+                        if (by1 - by0, bx1 - bx0) != (slot.h, slot.w):
+                            raise ValueError(
+                                "tile origin not aligned for this level "
+                                "count")
+                        band = _Band(slot.name, slot.resolution, c,
+                                     slot.quant, bx0, bx1, by0, by1,
+                                     mags, signs, fracs)
+                        _collect_blocks(band, specs, dests)
+                        bands.append(band)
+                    resolutions.append(bands)
+                comp_res.append(resolutions)
+            tile_records.append((tidx, (y0, x0), plan, comp_res))
+        tm["host"] += time.perf_counter() - t1_
+
+    t0 = time.perf_counter()
+    coded = t1_batch.encode_blocks(specs)
+    blocks = []
+    weights = []
+    for (band, cy, cx), blk in zip(dests, coded):
+        band.blocks[(cy, cx)] = blk
+        blocks.append(blk)
+        cw = norms[band.comp] ** 2 if used_mct else 1.0
+        weights.append(weight_of_slot[(band.res, band.name)] * cw)
+    for _, _, _, comp_res in tile_records:
+        for resolutions in comp_res:
+            for bands in resolutions:
+                for band in bands:
+                    band.mags = band.signs = band.fracs = None
+    tm["host"] += time.perf_counter() - t0
+    return tile_records, blocks, weights, qcd_values
+
+
 @dataclass
 class _Chunk:
     """Up to CHUNK_TILES same-shape tiles plus the host-side metadata
@@ -610,23 +718,30 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
                  device="cuda", stats: dict | None = None) -> bytes:
     """Encode a (H, W) or (H, W, 3) array into a raw JPEG 2000 codestream.
 
-    The transform and Tier-1 run on ``device`` ("cuda" unless the caller
-    asks for "cpu", where every kernel runs its plain PyTorch version).
-    ``stats``: optional dict that receives the encode's Tier-1 volume —
-    code-blocks, coded symbols and MQ bytes of the final pass set.
-    ``mesh`` (a sharded encode) is not supported by this package.
+    The transform and the device side of Tier-1 run on ``device``
+    ("cuda" unless the caller asks for "cpu", where every kernel runs its
+    plain PyTorch version). ``stats``: optional dict that receives the
+    encode's Tier-1 volume — code-blocks and MQ bytes of the final pass
+    set, and the coded symbols where the Tier-1 counts them (the host
+    block coder does not: ``"symbols"`` is then absent).
+    ``mesh`` (a sharded encode) is not supported by this package yet.
     """
     params = params or EncodeParams()
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"encode on {device} asked for, but CUDA is unavailable: this "
+            "torch build or machine has no usable CUDA device (pass "
+            "device=\"cpu\" to encode on the host)")
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded encodes (the JAX package's data/tile mesh) are "
-            "not ported; encode on one device")
-    use_mq = params.device_mq is not False
-    if not use_mq and not params.device_cxd:
-        raise NotImplementedError(
-            "device_mq=False without device_cxd asks for the host Tier-1, "
-            "which is not ported; use the fused device Tier-1 "
-            "(device_mq) or the CX/D split (device_cxd=True)")
+            "not ported yet (ROADMAP A.11); encode on one device")
+    if params.device_mq is not False:
+        mode = "mq"
+    elif params.device_cxd:
+        mode = "cxd"
+    else:
+        mode = "rows"
     h, w = img.shape[:2]
     n_comps = 1 if img.ndim == 2 else img.shape[2]
     if n_comps not in (1, 3):
@@ -678,26 +793,42 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
             "global band rectangle of a tile disagrees with its local "
             "Mallat geometry, so it cannot be coded. Use a tile size "
             f"divisible by 2^levels ({1 << levels}), or fewer levels.")
+    tm = {"device": 0.0, "host": 0.0, "cxd": 0.0, "mq": 0.0,
+          "mq_dev": 0.0}
+    t_wall0 = time.perf_counter()
+    svc = current_services()
     if "straddle" in states:
-        raise NotImplementedError(
-            f"tile size {tile} with {levels} decomposition levels: "
-            "sub-bands straddle the global 64x64 code-block grid; that "
-            "tiling needs the host Tier-1, which is not ported. Use a "
-            "tile size that is a multiple of 64 or a power of two.")
+        # Host-side block slicing for grids whose sub-bands straddle the
+        # global 64-grid cells, whatever Tier-1 the params asked for.
+        if svc is not None and svc.check is not None:
+            svc.check()
+        tile_records, all_coded, block_weights, qcd_values = \
+            _legacy_tier1(groups, plans, img, params, used_mct, gains,
+                          weight_of_slot, device, tm)
+        if _metrics_sink is not None:
+            _record_encode("legacy", tm, time.perf_counter() - t_wall0,
+                           h * w, 0, 0)
+        if stats is not None:
+            stats["blocks"] = len(all_coded)
+            stats["bytes"] = sum(len(b.data) for b in all_coded)
+        assign_index = {id(b): i for i, b in enumerate(all_coded)}
+        with obs.span("encode.tier2"):
+            return _finish(img, params, tile_records, all_coded,
+                           block_weights, assign_index, qcd_values,
+                           used_mct, bitdepth, n_comps, levels, tile,
+                           target)
 
     chunks, tile_records, qcd_values = _build_chunks(
         groups, plans, used_mct, gains, weight_of_slot, norms)
     frac_bits = 0 if params.lossless else FRAC_BITS
-    mode = "mq" if use_mq else "cxd"
     floor_lam = [0.0]
-    tm = {"device": 0.0, "host": 0.0, "cxd": 0.0, "mq": 0.0,
-          "mq_dev": 0.0}
-    # A shared scheduler pool may run two of this encode's replays at
-    # once: serialize the timing accumulator so segments stay exact.
+    # A shared scheduler pool may run two of this encode's host Tier-1
+    # jobs at once: serialize the timing accumulator so segments stay
+    # exact.
     tm_lock = threading.Lock()
-    coded = [0, 0]      # symbols, MQ bytes over every Tier-1 attempt
-    t_wall0 = time.perf_counter()
-    svc = current_services()
+    # Symbols and MQ bytes over every Tier-1 attempt (the host block
+    # coder counts no symbols).
+    coded = [0, 0]
 
     def _tm_add(key: str, dt: float) -> None:
         with tm_lock:
@@ -715,7 +846,7 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
                 chunk.pending = svc.dispatch(chunk.plan, batch, mode=mode)
             else:
                 chunk.pending = frontend.dispatch_frontend(
-                    chunk.plan, batch, device=device)
+                    chunk.plan, batch, mode=mode, device=device)
         _tm_add("device", time.perf_counter() - t0)
 
     def resolve(chunk: _Chunk) -> None:
@@ -739,14 +870,33 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
                                       sum(len(b.data) for b in blocks),
                                       0.0, 0.0, dt)
 
+    def host_code(chunk: _Chunk, floors: np.ndarray, payload: np.ndarray,
+                  offsets: np.ndarray) -> cxd_mod.MqDeviceResult:
+        """The host Tier-1 over one chunk's packed payload: context
+        modeling and MQ coding in C++ on the host's cores."""
+        t0 = time.perf_counter()
+        with obs.span("encode.host_t1", blocks=len(chunk.dests)):
+            blocks = t1_batch.encode_packed(payload, offsets,
+                                            chunk.fres.nbps, floors,
+                                            chunk.hs, chunk.ws,
+                                            chunk.bandnames)
+            if not params.lossless:
+                _correct_distortions(blocks, chunk.fres)
+        dt = time.perf_counter() - t0
+        _tm_add("host", dt)
+        return cxd_mod.MqDeviceResult(blocks, None,
+                                      sum(len(b.data) for b in blocks),
+                                      0.0, 0.0, dt)
+
     def tier1(pool, chunk: _Chunk, floors: np.ndarray, release: bool,
               futs: list) -> None:
         """Queue one chunk's Tier-1 result onto ``futs``. The fused path
-        finishes here; the split's host replay runs on the host pool
-        while the caller goes on to the next chunk's device work."""
+        finishes here; the split's host replay and the host Tier-1 run
+        on the host pool while the caller goes on to the next chunk's
+        device work."""
         args = (chunk.fres.nbps, floors, chunk.bandnames, chunk.hs,
                 chunk.ws, frac_bits)
-        if use_mq:
+        if mode == "mq":
             def t1_stage(blocks_dev):
                 return cxd_mod.run_device_mq(blocks_dev, *args)
 
@@ -772,21 +922,33 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
             fut: Future = Future()
             fut.set_result(res)
         else:
-            with obs.span("encode.cxd_device", blocks=len(chunk.dests)):
-                streams = cxd_mod.run_cxd(chunk.fres.blocks, *args)
-            _tm_add("device", streams.device_s)
-            _tm_add("cxd", streams.device_s)
-            with tm_lock:
-                coded[0] += streams.total_syms
-            # Back-pressure: at most HOST_QUEUE_DEPTH unfinished replays,
-            # so the fetched symbol payloads stay bounded.
+            if mode == "cxd":
+                with obs.span("encode.cxd_device",
+                              blocks=len(chunk.dests)):
+                    streams = cxd_mod.run_cxd(chunk.fres.blocks, *args)
+                _tm_add("device", streams.device_s)
+                _tm_add("cxd", streams.device_s)
+                with tm_lock:
+                    coded[0] += streams.total_syms
+                job = (host_replay, chunk, streams)
+            else:
+                t0 = time.perf_counter()
+                src, offsets = frontend.payload_plan(
+                    chunk.fres.nbps, floors, chunk.fres.layout.P)
+                payload = frontend.fetch_payload(chunk.fres, src)
+                _tm_add("device", time.perf_counter() - t0)
+                job = (host_code, chunk, floors, payload, offsets)
+            # Back-pressure: at most HOST_QUEUE_DEPTH unfinished host
+            # jobs, so the fetched payloads stay bounded.
             live = [f for f in futs if not f.done()]
             if len(live) > HOST_QUEUE_DEPTH:
                 live[0].result()
             # obs.bind: pool threads do not inherit the trace context.
-            fut = pool.submit(obs.bind(host_replay), chunk, streams)
+            fut = pool.submit(obs.bind(job[0]), *job[1:])
         if release:
-            chunk.fres.blocks = None     # free the device staging buffer
+            # Free the device staging buffer (a merged launch's rows are
+            # shared: they go when the last window lets go of them).
+            chunk.fres.blocks = chunk.fres.rows = None
         futs.append(fut)
 
     def chunk_floors(margin: float) -> list:
@@ -811,11 +973,12 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
             ofs += c.fres.n_blocks
         return out
 
-    # The split's host replay runs on the scheduler's shared pool when
-    # one is installed (never shut down here), else on one private
-    # worker beside the main thread (ctypes releases the interpreter
-    # lock for the native replay). Results are collected in submission
-    # order either way, so the output is the same as a serial replay's.
+    # The host Tier-1 (the split's replay, the packed payload's coding)
+    # runs on the scheduler's shared pool when one is installed (never
+    # shut down here), else on one private worker beside the main thread
+    # (ctypes releases the interpreter lock for the native coder).
+    # Results are collected in submission order either way, so the
+    # output is the same as a serial run's.
     if svc is not None and svc.pool is not None:
         pool_cm = contextlib.nullcontext(svc.pool)
     else:
@@ -878,7 +1041,7 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
                 margin *= 4.0
 
     if _metrics_sink is not None:
-        _record_encode(use_mq, tm, time.perf_counter() - t_wall0, h * w,
+        _record_encode(mode, tm, time.perf_counter() - t_wall0, h * w,
                        *coded)
 
     all_coded: list = []
@@ -899,7 +1062,8 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
             chunk.fres = None     # release stats + any remaining blocks
     if stats is not None:
         stats["blocks"] = len(all_coded)
-        stats["symbols"] = sum(res.total_syms for res in results)
+        if mode != "rows":
+            stats["symbols"] = sum(res.total_syms for res in results)
         stats["bytes"] = sum(res.total_bytes for res in results)
     with obs.span("encode.tier2"):
         return _finish(img, params, tile_records, all_coded,
@@ -907,27 +1071,32 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
                        bitdepth, n_comps, levels, tile, target)
 
 
-def _record_encode(use_mq: bool, tm: dict, wall_s: float, pixels: int,
+def _record_encode(mode: str, tm: dict, wall_s: float, pixels: int,
                    n_syms: int, n_mq_bytes: int) -> None:
     """One encode's segments on the metrics sink, under the JAX
-    package's stage and counter names."""
+    package's stage and counter names. ``mode`` is the front-end mode,
+    or "legacy" for the host-sliced straddling grids; the host Tier-1
+    modes ("rows", "legacy") record only the device and host segments,
+    as the JAX package's host path does."""
     sink = _metrics_sink
     sink.record("encode.device_dispatch", tm["device"], pixels=pixels)
     sink.record("encode.host_code", tm["host"], pixels=pixels)
-    sink.record("encode.cxd_device", tm["cxd"], pixels=pixels)
-    if use_mq:
+    if mode == "mq":
         # The fused Tier-1's segments: the launches, the byte-segment
         # fetch (items=bytes) and their sum (items=symbols).
+        sink.record("encode.cxd_device", tm["cxd"], pixels=pixels)
         sink.record("encode.mq_device", tm["mq_dev"], pixels=pixels,
                     items=n_mq_bytes)
         sink.record("encode.t1_device_total", tm["cxd"] + tm["mq_dev"],
                     pixels=pixels, items=n_syms)
         sink.count("encode.mq_device_bytes", n_mq_bytes)
-    else:
+        sink.count("encode.cxd_symbols", n_syms)
+    elif mode == "cxd":
         # The split's host MQ replay, with its symbol throughput.
+        sink.record("encode.cxd_device", tm["cxd"], pixels=pixels)
         sink.record("encode.mq_replay", tm["mq"], pixels=pixels,
                     items=n_syms)
-    sink.count("encode.cxd_symbols", n_syms)
+        sink.count("encode.cxd_symbols", n_syms)
     sink.record_overlap("encode", tm["device"], tm["host"], wall_s,
                         pixels=pixels)
 

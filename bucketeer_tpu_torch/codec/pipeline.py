@@ -6,7 +6,9 @@ lossless, bitdepth, components) combination on the host: subband
 geometry, signaled quantizer steps, and a per-sample step map over the
 Mallat coefficient layout. :func:`_transform_batch` maps a batch
 ``(B, h, w, C) -> (B, C, h, w)`` int32 on whatever device the batch
-lies on.
+lies on; :func:`run_tiles` runs it on a host batch and brings the planes
+back, and :func:`extract_bands` slices one plane into band arrays for
+the host Tier-1 (encoder._legacy_tier1).
 """
 from __future__ import annotations
 
@@ -17,8 +19,9 @@ import numpy as np
 import torch
 
 from .dwt import dwt2d_forward, synthesis_gains
-from .quant import (SubbandQuant, quantize_fp, signal_irreversible,
-                    signal_reversible, step_for_subband)
+from .quant import (FRAC_BITS, SubbandQuant, quantize_fp,
+                    signal_irreversible, signal_reversible,
+                    step_for_subband)
 from .transforms import ict_forward, level_shift_forward, rct_forward
 
 
@@ -145,3 +148,45 @@ def _transform_batch(plan: TilePlan, step_map: torch.Tensor | None,
     if plan.lossless:
         return coeffs.to(torch.int32).contiguous()
     return quantize_fp(coeffs, step_map).contiguous()
+
+
+def run_tiles(plan: TilePlan, tiles: np.ndarray,
+              device: str | torch.device = "cuda") -> np.ndarray:
+    """Encode-transform a (B, h, w[, C]) batch of tiles on ``device``;
+    returns (B, C, h, w) int32 on the host."""
+    if tiles.ndim == 3:
+        tiles = tiles[..., None]
+    # The transform widens to int32/float32 first; torch has no uint16
+    # arithmetic, and an 8-byte host dtype would double the copy.
+    if tiles.dtype in (np.int64, np.uint16):
+        tiles = tiles.astype(np.int32)
+    elif tiles.dtype == np.float64:
+        tiles = tiles.astype(np.float32)
+    step_map = (None if plan.lossless else
+                torch.as_tensor(_step_map(plan), device=device))
+    staged = torch.as_tensor(np.ascontiguousarray(tiles), device=device)
+    return _transform_batch(plan, step_map, staged).cpu().numpy()
+
+
+def extract_bands(plane: np.ndarray, plan: TilePlan):
+    """Slice one component's (h, w) int32 Mallat plane into
+    resolution-major band arrays.
+
+    Returns [resolution][band] of (slot, mags uint32, signs bool,
+    fracs uint8|None). Lossy planes are fixed point with FRAC_BITS
+    fractional magnitude bits (quantize_fp): the coded index is
+    ``fp >> FRAC_BITS`` and the low bits drive Tier-1's distortion
+    estimates. Lossless coefficients are exact integers (fracs=None).
+    """
+    n_res = plan.levels + 1
+    resolutions = [[] for _ in range(n_res)]
+    for s in plan.slots:
+        idx = plane[s.y0:s.y0 + s.h, s.x0:s.x0 + s.w].astype(np.int64)
+        mag = np.abs(idx)
+        if plan.lossless:
+            mags, fracs = mag.astype(np.uint32), None
+        else:
+            mags = (mag >> FRAC_BITS).astype(np.uint32)
+            fracs = (mag & ((1 << FRAC_BITS) - 1)).astype(np.uint8)
+        resolutions[s.resolution].append((s, mags, idx < 0, fracs))
+    return resolutions

@@ -34,7 +34,9 @@ class CudaConverter:
         # Tier-1 placement, passed into EncodeParams as the JAX
         # package's TpuConverter does: device_mq=False with
         # device_cxd=True runs the CX/D split (device scan, host MQ
-        # replay); the defaults run the fused device Tier-1.
+        # replay), device_mq=False without it the host Tier-1 (bit-planes
+        # packed on the card, coded on the host's cores); the defaults
+        # run the fused device Tier-1.
         self.device_cxd = device_cxd
         self.device_mq = device_mq
         self.lossy_rate = lossy_rate

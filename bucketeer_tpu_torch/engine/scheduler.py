@@ -20,19 +20,22 @@ Tier-1 capacity instead:
   worker runs its launches with its device current
   (``torch.cuda.device``) and passes ``device=`` to every launch, so
   the launch's tensors land on the worker's card.
-- **Continuous batching** — compatible tensor-codec chunks from
-  *different* requests (same dtype, row shape and backend, at most
-  ``MAX_BATCH_BLOCKS`` code-blocks) are concatenated into one Tier-1
-  launch, and compatible dequantizer launches (same reversibility,
-  steps and band shapes, at most ``MAX_BATCH_IMAGES`` images) are
-  stacked into one; each request gets its slice back. Per-block coding
-  and the elementwise dequantizer are independent of batch-mates, so
-  the slices are byte-identical to solo launches. A worker only holds
-  the aggregation window when no idle peer could take arriving work
-  instead: with free devices, parallelism beats batching. Encode
-  front-end chunks (modes ``"mq"`` and ``"cxd"``) flow through the pool
-  unmerged, as in the JAX package, whose only mergeable encode mode
-  (``"rows"``) this package lacks.
+- **Continuous batching** — compatible encode front-end chunks of mode
+  ``"rows"`` from *different* requests (same plan, tile dtype and shape,
+  at most ``max_batch_tiles`` tiles) are concatenated into one
+  front-end launch, each request resolving its own tile window of it
+  (:class:`_SlicedPending`); compatible tensor-codec chunks (same dtype,
+  row shape and backend, at most ``MAX_BATCH_BLOCKS`` code-blocks) into
+  one Tier-1 launch; and compatible dequantizer launches (same
+  reversibility, steps and band shapes, at most ``MAX_BATCH_IMAGES``
+  images) are stacked into one. The transform and the bit-plane packing
+  are per tile, per-block coding and the elementwise dequantizer are
+  independent of batch-mates, so the slices are byte-identical to solo
+  launches. A worker only holds the aggregation window when no idle
+  peer could take arriving work instead: with free devices, parallelism
+  beats batching. Front-end chunks of modes ``"mq"`` and ``"cxd"`` flow
+  through the pool unmerged, as in the JAX package: their blocks feed
+  Tier-1 launches shaped per chunk.
 - **Pipeline-stage mapping** (``pipeline="auto"``, default off) — with
   the fused device Tier-1 the encode has two device stages, the
   front-end and the fused Tier-1 kernel. In ``auto`` mode the pool is
@@ -44,8 +47,9 @@ Tier-1 capacity instead:
   ``cA/k + cB/(n-k)`` second) over the stage costs this scheduler has
   measured (:meth:`EncodeScheduler.stage_costs`); ``pipeline_split``
   overrides the mapper.
-- **Shared host Tier-1** — the split's MQ replay runs on one pool
-  (``pool_size`` workers), with per-request ordered reassembly: each
+- **Shared host Tier-1** — the split's MQ replay and the host Tier-1
+  of mode ``"rows"`` run on one pool (``pool_size`` workers), with
+  per-request ordered reassembly: each
   request collects its own futures in submission order, so output stays
   byte-identical to the serial path.
 - **Admission control** — a bounded queue with backpressure: when
@@ -93,6 +97,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..codec.frontend import MODES
 from . import faults
 
 LOG = logging.getLogger(__name__)
@@ -105,17 +110,21 @@ PRIORITY_BATCH = 1       # CSV batch items yield to interactive traffic
 PRIORITY_TENSOR = 1      # tensor-codec jobs: batch-class, never ahead
                          # of interactive reads
 
-# Upper bounds per merged launch: code-blocks for tensor chunks, images
-# for dequantizer launches (each image brings one full set of bands).
+# Upper bounds per merged launch: tiles for encode front-end chunks (the
+# default of ``max_batch_tiles``: it bounds the packed rows held on the
+# device however many requests pile up), code-blocks for tensor chunks,
+# images for dequantizer launches (each image brings one full set of
+# bands).
+MAX_BATCH_TILES = 64
 MAX_BATCH_BLOCKS = 128
 MAX_BATCH_IMAGES = 16
 
 _STAGE_CAPS = {"tensor": MAX_BATCH_BLOCKS, "dequant": MAX_BATCH_IMAGES}
 
 # Modes of an encode's front-end launch (the Tier-1 shape it feeds): the
-# fused device Tier-1, or the CX/D split. The front-end program is the
-# same for both; the mode keeps the JAX launch contract.
-FRONTEND_MODES = ("mq", "cxd")
+# host Tier-1 over packed bit-planes, the fused device Tier-1, or the
+# CX/D split. Only "rows" launches merge across requests.
+FRONTEND_MODES = MODES
 
 
 class QueueFull(RuntimeError):
@@ -176,8 +185,30 @@ class _DeviceJob:
     stage = "frontend"
 
     @property
+    def key(self):
+        # Merge-compatibility: one program and a concatenable host
+        # batch. Only "rows" launches merge; the mode is part of the key
+        # so the others never match.
+        return (self.plan, self.mode, self.tiles.dtype.str,
+                self.tiles.shape[1:])
+
+    @property
     def size(self) -> int:
         return self.n_tiles
+
+
+@dataclass
+class _SlicedPending:
+    """A request's share of a merged front-end launch: quacks like
+    frontend.PendingFrontend (resolve_stats) but resolves to a
+    FrontendResult windowed onto [tile_off, tile_off + n_tiles)."""
+    merged: object            # frontend.PendingFrontend
+    tile_off: int
+    n_tiles: int
+
+    def resolve_stats(self):
+        return self.merged.resolve_stats(tile_off=self.tile_off,
+                                         n_tiles=self.n_tiles)
 
 
 @dataclass
@@ -293,9 +324,12 @@ class EncodeScheduler:
     - ``pool_size`` (:func:`default_pool_size`): shared host Tier-1
       workers.
     - ``window_s`` (0.003): aggregation window a device worker waits for
-      co-batchable tensor or dequantizer chunks while other requests are
-      in flight and no idle peer device could take them. 0 disables
-      merging of chunks that are not already queued.
+      co-batchable front-end ("rows"), tensor or dequantizer chunks
+      while other requests are in flight and no idle peer device could
+      take them. 0 disables merging of chunks that are not already
+      queued.
+    - ``max_batch_tiles`` (:data:`MAX_BATCH_TILES`): tiles per merged
+      front-end launch.
     - ``devices`` (0 = all): device-pool size cap for "cuda"; the number
       of CPU workers (0 = 1) for "cpu".
     - ``pipeline`` ("off"): "auto" maps the front-end and fused Tier-1
@@ -310,7 +344,8 @@ class EncodeScheduler:
                  max_concurrent: int = 8, pool_size: int | None = None,
                  window_s: float = 0.003, deadline_s: float | None = None,
                  retry_after_s: float = 2.0, devices: int = 0,
-                 pipeline: str = "off", pipeline_split: int = 0) -> None:
+                 pipeline: str = "off", pipeline_split: int = 0,
+                 max_batch_tiles: int = MAX_BATCH_TILES) -> None:
         self.device_type = torch.device(device).type
         if self.device_type not in ("cuda", "cpu"):
             raise ValueError(f"scheduler device must be cuda or cpu, got "
@@ -328,6 +363,7 @@ class EncodeScheduler:
         self.pool_size = (default_pool_size() if pool_size is None
                           else pool_size)
         self.window_s = window_s
+        self.max_batch_tiles = max(1, max_batch_tiles)
         self.default_deadline_s = deadline_s or None
         self.retry_after_s = retry_after_s
         self.devices = devices
@@ -815,8 +851,8 @@ class EncodeScheduler:
         ``frontend.PendingFrontend``, which the request thread
         resolves."""
         if mode not in FRONTEND_MODES:
-            raise ValueError(f"front-end mode {mode!r} is not ported; "
-                             f"modes are {FRONTEND_MODES}")
+            raise ValueError(f"unknown front-end mode {mode!r}; modes are "
+                             f"{FRONTEND_MODES}")
         return self._enqueue(_DeviceJob(
             plan, np.asarray(tiles), mode, len(tiles),
             ctx=obs.current_context(), priority=_priority))
@@ -984,12 +1020,20 @@ class EncodeScheduler:
                 return True
         return False
 
+    def _merge_cap(self, job) -> int | None:
+        """Size cap of a merged launch led by ``job`` (tiles, blocks or
+        images), or None when its launches never merge."""
+        if job.stage == "frontend":
+            return self.max_batch_tiles if job.mode == "rows" else None
+        return _STAGE_CAPS.get(job.stage)
+
     def _take_compatible_locked(self, group: list) -> int:
         """Move queued jobs merge-compatible with group[0] into the
         group (caller holds the queue cv). Returns the group size total
-        (blocks for tensor, images for dequant)."""
+        (tiles for front-end groups, blocks for tensor, images for
+        dequant)."""
         lead = group[0]
-        cap = _STAGE_CAPS[lead.stage]
+        cap = self._merge_cap(lead)
         key = lead.key
         total = sum(j.size for j in group)
         kept: list = []
@@ -1019,18 +1063,19 @@ class EncodeScheduler:
         self._djobs = []
 
     def _gather_locked(self, widx: int, job) -> list:
-        """The launch group led by ``job``: mergeable (tensor and
-        dequantizer) jobs collect compatible queued peers, waiting up to
-        the window while other running requests could still contribute
-        one and no idle peer device could take them instead."""
+        """The launch group led by ``job``: mergeable (front-end "rows",
+        tensor and dequantizer) jobs collect compatible queued peers,
+        waiting up to the window while other running requests could
+        still contribute one and no idle peer device could take them
+        instead."""
         group = [job]
-        if job.stage not in _STAGE_CAPS:
+        cap = self._merge_cap(job)
+        if cap is None:
             return group
         if self.window_s <= 0 or self._idle_peer_locked(widx, job.stage):
             # No window (or an idle peer): merge only what is queued.
             self._take_compatible_locked(group)
             return group
-        cap = _STAGE_CAPS[job.stage]
         limit = time.monotonic() + self.window_s
         while True:
             total = self._take_compatible_locked(group)
@@ -1082,7 +1127,7 @@ class EncodeScheduler:
             try:
                 with _pinned(self._devices[widx]):
                     if job.stage == "frontend":
-                        self._launch(job, widx)
+                        self._launch(group, widx)
                     elif job.stage == "tensor":
                         self._launch_tensor(group, widx)
                     elif job.stage == "dequant":
@@ -1139,34 +1184,45 @@ class EncodeScheduler:
                     j.error = RuntimeError("device launch failed")
                 j.event.set()
 
-    def _launch(self, job: _DeviceJob, widx: int) -> None:
-        """One front-end launch (never merged: modes "mq" and "cxd"
-        leave the blocks on the device for Tier-1 launches shaped per
-        chunk)."""
+    def _launch(self, group: list, widx: int) -> None:
+        """One front-end launch: a single chunk in its own mode, or a
+        merged group of "rows" chunks (one concatenated tile batch, each
+        request resolving its own tile window)."""
         dev = self._devices[widx]
-        attrs = {"occupancy": 1, "tiles": job.n_tiles, "mode": job.mode,
-                 "device_id": widx}
+        lead = group[0]
+        n_tiles = sum(j.n_tiles for j in group)
+        attrs = {"occupancy": len(group), "tiles": n_tiles,
+                 "mode": lead.mode, "device_id": widx}
+        if self.launch_fn is not None:
+            launch = self.launch_fn
+        else:
+            from ..codec import frontend
+            launch = functools.partial(frontend.dispatch_frontend,
+                                       device=dev)
 
         def run():
             t0 = time.perf_counter()
             with obs.span("device.launch", ctx=None,
-                          links=[job.ctx] if job.ctx else [], **attrs):
-                if self.launch_fn is not None:
-                    job.result = self.launch_fn(job.plan, job.tiles,
-                                                mode=job.mode)
+                          links=[j.ctx for j in group if j.ctx], **attrs):
+                if len(group) == 1:
+                    lead.result = launch(lead.plan, lead.tiles,
+                                         mode=lead.mode)
                 else:
-                    from ..codec import frontend
-                    job.result = frontend.dispatch_frontend(
-                        job.plan, job.tiles, device=dev)
+                    tiles = np.concatenate([j.tiles for j in group])
+                    merged = launch(lead.plan, tiles, mode="rows")
+                    off = 0
+                    for j in group:
+                        j.result = _SlicedPending(merged, off, j.n_tiles)
+                        off += j.n_tiles
             self._add_stage_s("frontend", time.perf_counter() - t0)
 
         def record(sink):
             sink.count("encode.device_launches")
             sink.count(f"encode.device_launches.d{widx}")
-            sink.count("encode.batched_tiles", job.n_tiles)
-            sink.observe("encode.batch_occupancy", 1)
+            sink.count("encode.batched_tiles", n_tiles)
+            sink.observe("encode.batch_occupancy", len(group))
 
-        self._deliver([job], run, record)
+        self._deliver(group, run, record)
 
     def _add_stage_s(self, stage: str, seconds: float) -> None:
         with self._dq_cv:

@@ -12,7 +12,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    source, all at once: the kernels csrc/fused_t1.cu, cxd_scan.cu,
    mq_scan.cu and probe.cu (nvcc, with ptxas's register and spill lines
    and each Tier-1 kernel's resident thread blocks per SM printed) and
-   the host MQ replay csrc/host_mq.cpp (g++); then the capability check
+   the host Tier-1 csrc/host_t1.cpp (g++); then the capability check
    (kernels/support.py require_kernels);
 3. each kernel against its plain PyTorch version on the same inputs,
    one plain run per launch group held against three kernels: fused_t1,
@@ -118,7 +118,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    message naming the job, and the journal replaying to the finished
    job; a 2-item job on a second Engine configured for the CX/D split,
    objects equal to the fused files;
-10. one JSON line with every kernel, then the card line and the result
+10. the host Tier-1 on the card (front-end mode "rows": bit-planes
+   packed on the card, the planes each block codes gathered to the host
+   and coded there in C++), the launch counts set to 0 before and read
+   after (the path runs no kernel): (a) phase 5's image through
+   CudaConverter(device_mq=False, device_cxd=False), lossless and lossy,
+   each file equal to phase 5's fused file, with the wall, the payload
+   fetched, then a synchronized breakdown (front-end, packing, payload
+   plan and fetch, the host coder on the shared pool, PCRD + Tier-2) and
+   peak device memory; (b) the same image lossless at tile 320, 5 levels
+   (sub-bands straddle the 64x64 code-block grid, so the blocks are
+   sliced and coded on the host), equal to the same encode with
+   device="cpu" and decoded on the card (codec.decode.decode, tile-
+   aligned strips in worker processes) to the source exactly; (c) two
+   concurrent lossless rows converts of phase 5's and phase 8's images
+   through one scheduler, each equal to its solo run, with fewer
+   front-end launches (merged) than the solo runs' sum;
+11. one JSON line with every kernel, then the card line and the result
    line.
 """
 from __future__ import annotations
@@ -629,7 +645,8 @@ def first_chunk_groups(img: np.ndarray):
     batch = np.stack([img[0:t, x:x + t] for x in
                       range(0, min(img.shape[1], encoder.CHUNK_TILES * t),
                             t)])
-    fres = frontend.dispatch_frontend(plan, batch, "cuda").resolve_stats()
+    fres = frontend.dispatch_frontend(plan, batch,
+                                      device="cuda").resolve_stats()
     layout = frontend.layout_for(plan)
     names = [plan.slots[m.slot_i].name for m in layout.metas] * len(batch)
     hs = np.asarray([m.h for m in layout.metas] * len(batch), np.int32)
@@ -657,7 +674,7 @@ def libraries() -> dict:
 
     return {"fused_t1": fused_t1.KERNEL, "cxd_scan": cxd_scan.KERNEL,
             "mq_scan": mq_scan.KERNEL, "probe": support.PROBE,
-            "host_mq": t1_batch.HOST_MQ}
+            "host_t1": t1_batch.HOST_T1}
 
 
 def phase_build() -> None:
@@ -2554,6 +2571,268 @@ def phase_service(main_res: dict, ref: dict, workdir: str) -> dict:
     return {"counts": counts}
 
 
+# --- phase 10: the host Tier-1 on the card ----------------------------------
+
+STRADDLE_TILE = 320         # at 5 levels its sub-bands straddle the 64-grid
+STRADDLE_LEVELS = 5
+DECODE_WORKERS = 7          # processes decoding the straddle file's strips
+ROWS_WINDOW_S = 0.05        # phase 10's scheduler: merge window
+
+
+def rows_stages(worker: bool) -> list:
+    """The rows encode's stages, [(label, module, attribute)]: on the
+    encode's own thread (synchronized) or on the host Tier-1 pool."""
+    from bucketeer_tpu_torch.codec import encoder, frontend, rate
+    from bucketeer_tpu_torch.codec import t1_batch, tiff
+
+    if worker:
+        return [("host coder (encode_packed)", t1_batch, "encode_packed"),
+                ("distortion rescale", encoder, "_correct_distortions")]
+    return [("tiff read", tiff, "read_image"),
+            ("mct choice", encoder, "_mct_helps"),
+            ("front-end (transform, blockify, stats, packing)", frontend,
+             "dispatch_frontend"),
+            ("of which packing", frontend, "_pack_bits"),
+            ("floor estimate", rate, "estimate_floors"),
+            ("payload plan", frontend, "payload_plan"),
+            ("payload fetch", frontend, "fetch_payload"),
+            ("pcrd + tier-2", encoder, "_finish")]
+
+
+class PayloadCounter:
+    """Counts the rows and bytes frontend.fetch_payload brings to the
+    host while installed."""
+
+    def __init__(self):
+        self.rows = self.bytes = 0
+
+    def __enter__(self):
+        from bucketeer_tpu_torch.codec import frontend
+
+        self.real = frontend.fetch_payload
+
+        def counting(*a):
+            out = self.real(*a)
+            self.rows += out.shape[0]
+            self.bytes += out.nbytes
+            return out
+
+        frontend.fetch_payload = counting
+        return self
+
+    def __exit__(self, *exc):
+        from bucketeer_tpu_torch.codec import frontend
+
+        frontend.fetch_payload = self.real
+
+
+def decode_strip(job) -> tuple:
+    """One strip of a file decoded on the card, in a worker process (one
+    host thread): (y0, samples, seconds)."""
+    from bucketeer_tpu_torch.codec.decode import decode
+
+    data, y0, y1 = job
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = decode(data, region=(0, y0, SIZE, y1 - y0), device="cuda")
+    return y0, out, time.perf_counter() - t0
+
+
+def phase_rows(img, main_res: dict, ref: dict) -> dict:
+    """Phase 10: the host Tier-1 (front-end mode "rows": bit-planes
+    packed on the card, the planes each block codes gathered and copied
+    to the host, EBCOT and MQ coding in C++ on the host's cores) at
+    BASELINE config 1's size. (a) CudaConverter(device_mq=False,
+    device_cxd=False), Kakadu recipe, lossless and lossy: the files
+    equal phase 5's fused files byte for byte; wall, then a synchronized
+    breakdown. (b) tile 320 at 5 levels, lossless: the grid straddles
+    the 64x64 code-block grid, so the planes come back to the host and
+    the blocks are sliced and coded there (encoder._legacy_tier1); the
+    file equals the CPU encode and decodes on the card to the source
+    exactly. (c) two concurrent rows converts of two images through one
+    scheduler: files equal their solo runs, and the merged front-end
+    launches number fewer than the solo runs' sum. The launch counts
+    are set to 0 before (a) and read after (c): no kernel runs."""
+    import dataclasses
+
+    from bucketeer_tpu_torch.codec import encoder, pipeline, t1_batch
+    from bucketeer_tpu_torch.converters import Conversion, CudaConverter
+    from bucketeer_tpu_torch.engine import EncodeScheduler
+    from bucketeer_tpu_torch.server.metrics import Metrics
+
+    src, src2 = main_res["src"], ref["src2"]
+    LL, LY = Conversion.LOSSLESS, Conversion.LOSSY
+    h, w = img.shape[:2]
+    threads = t1_batch.default_threads()
+    reset_counts()
+
+    # (a) the rows main path through CudaConverter.
+    conv = CudaConverter(device_mq=False, device_cxd=False)
+    walls = {}
+    for conversion in (LL, LY):
+        torch.cuda.reset_peak_memory_stats()
+        with PayloadCounter() as pc:
+            t0 = time.perf_counter()
+            out = conv.convert(f"smoke-rows-{conversion.value}", src,
+                               conversion)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        with open(out, "rb") as fh:
+            data = fh.read()
+        same = data == main_res["files"][conversion]
+        walls[conversion] = wall
+        st = conv.last_stats
+        say(f"rows {conversion.value} {w}x{h}: wall {wall:.3f} s, "
+            f"{h * w / wall / 1e6:.3f} MPix/s, {len(data)} B; payload "
+            f"{pc.rows} rows, {pc.bytes} B fetched; blocks {st['blocks']}, "
+            f"bytes {st['bytes']}, symbols "
+            f"{st.get('symbols', 'not counted by the host coder')}; host "
+            f"coder threads {threads}; peak device memory {peak:.1f} MiB "
+            f"(fused, phase 5: {main_res['walls'][conversion]:.3f} s); "
+            f"file identical to phase 5's fused file: {same}")
+        if not same:
+            fail(f"rows {conversion.value}: the host Tier-1's file differs "
+                 "from the fused path's")
+        if "symbols" in st:
+            fail("rows: the host coder reported a symbol count it does not "
+                 "make")
+    for conversion in (LL, LY):
+        with StageTimer(rows_stages(False)) as stt, \
+                StageTimer(rows_stages(True), sync=False) as wt, \
+                PayloadCounter() as pc:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            conv.convert(f"smoke-rows-breakdown-{conversion.value}", src,
+                         conversion)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        own = sum(v for k, v in stt.seconds.items()
+                  if k != "of which packing")
+        say(f"breakdown rows {conversion.value} (synchronized): wall "
+            f"{wall:.3f} s = {stt.line()}, other {wall - own:.3f} s; on the "
+            f"host Tier-1 pool ({threads} coder threads per call): "
+            f"{wt.line()}; payload {pc.rows} rows, {pc.bytes} B; peak "
+            f"device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+    # (b) a straddling grid: host-sliced blocks.
+    params = dataclasses.replace(
+        conv.encode_params(h, w, 8, LL), tile_size=STRADDLE_TILE,
+        levels=STRADDLE_LEVELS)
+    state = encoder._grid_aligned(
+        pipeline.make_plan(STRADDLE_TILE, STRADDLE_TILE, 3,
+                           STRADDLE_LEVELS, True, 8, params.base_delta),
+        (STRADDLE_TILE, STRADDLE_TILE))
+    if state != "straddle":
+        fail(f"tile {STRADDLE_TILE} at {STRADDLE_LEVELS} levels is "
+             f"{state!r}, not a straddling grid")
+    stages = [("transform + planes to the host", pipeline, "run_tiles"),
+              ("host coder (encode_blocks)", t1_batch, "encode_blocks"),
+              ("pcrd + tier-2", encoder, "_finish")]
+    torch.cuda.reset_peak_memory_stats()
+    with StageTimer(stages) as stt:
+        t0 = time.perf_counter()
+        card = encoder.encode_jp2(img, 8, params, jpx=True, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    say(f"straddle lossless tile {STRADDLE_TILE} levels {STRADDLE_LEVELS} "
+        f"(synchronized): wall {wall:.3f} s, {h * w / wall / 1e6:.3f} "
+        f"MPix/s, {len(card)} B = {stt.line()}, block slicing and other "
+        f"{wall - sum(stt.seconds.values()):.3f} s; peak device memory "
+        f"{peak:.1f} MiB")
+    t0 = time.perf_counter()
+    cpu = encoder.encode_jp2(img, 8, params, jpx=True, device="cpu")
+    say(f"straddle: the same encode with device=\"cpu\" "
+        f"{time.perf_counter() - t0:.3f} s; card file identical to the "
+        f"CPU file: {card == cpu}")
+    if card != cpu:
+        fail("straddle: the card's file differs from the CPU encode's")
+    rows_of_tiles = np.array_split(
+        np.arange(-(-SIZE // STRADDLE_TILE)), DECODE_WORKERS)
+    jobs = [(card, int(r[0]) * STRADDLE_TILE,
+             min(SIZE, (int(r[-1]) + 1) * STRADDLE_TILE))
+            for r in rows_of_tiles if len(r)]
+    spawn = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=len(jobs),
+                             mp_context=spawn) as pool:
+        strips = list(pool.map(decode_strip, jobs))
+    back = np.concatenate([out for _, out, _ in sorted(
+        strips, key=lambda r: r[0])])
+    exact = back.shape == img.shape and np.array_equal(back, img)
+    say(f"straddle: decode on the card (codec.decode.decode, "
+        f"{len(jobs)} worker processes, one tile-aligned strip each) "
+        f"{time.perf_counter() - t0:.2f} s wall, strips "
+        + ", ".join(f"{t:.1f}" for _, _, t in strips)
+        + f" s; equals the source exactly: {exact}")
+    if not exact:
+        fail("straddle: the file does not decode to the source")
+
+    # (c) concurrent rows converts merge their front-end launches.
+    sink = Metrics()
+    sched = EncodeScheduler(device="cuda", window_s=ROWS_WINDOW_S)
+    sched.set_metrics_sink(sink)
+    sconv = CudaConverter(device_mq=False, device_cxd=False,
+                          scheduler=sched)
+
+    def launches() -> int:
+        return sink.report().get("counters", {}).get(
+            "encode.device_launches", 0)
+
+    def convert(i, tag):
+        out = sconv.convert(f"smoke-rows-sched-{tag}-{i}",
+                            src if i == 1 else src2, LL)
+        with open(out, "rb") as fh:
+            return fh.read()
+
+    solo, solo_walls, solo_launches = {}, {}, 0
+    try:
+        for i in (1, 2):
+            before = launches()
+            t0 = time.perf_counter()
+            solo[i] = convert(i, "solo")
+            torch.cuda.synchronize()
+            solo_walls[i] = time.perf_counter() - t0
+            solo_launches += launches() - before
+        for i, want in ((1, main_res["files"][LL]), (2, ref["files2"][LL])):
+            if solo[i] != want:
+                fail(f"rows sched: image {i}'s solo rows convert differs "
+                     "from its direct fused encode")
+        before = launches()
+        torch.cuda.reset_peak_memory_stats()
+        outs, wall = _run_threads(
+            [lambda i=i: convert(i, "pair") for i in (1, 2)],
+            "rows sched pair")
+        pair_launches = launches() - before
+        peak = torch.cuda.max_memory_allocated() / 2**20
+    finally:
+        sched.close()
+    occ = sink.report()["values"]["encode.batch_occupancy"]
+    same = [outs[k] == solo[k + 1] for k in range(2)]
+    say(f"rows sched: 2 concurrent lossless rows converts (images 1 and 2) "
+        f"equal their solo runs: {same}; wall {wall:.3f} s against "
+        f"{sum(solo_walls.values()):.3f} s of solo walls ("
+        + " + ".join(f"{solo_walls[i]:.3f}" for i in (1, 2))
+        + f"); front-end launches {pair_launches} against {solo_launches} "
+        f"solo (occupancy max {occ['max']:.0f}, merge window "
+        f"{ROWS_WINDOW_S * 1e3:.0f} ms, at most {sched.max_batch_tiles} "
+        f"tiles); host Tier-1 pool {sched.pool_size} worker(s) x "
+        f"{threads} coder threads; peak device memory {peak:.1f} MiB")
+    if not all(same):
+        fail("rows sched: a concurrent convert differs from its solo run")
+    if pair_launches >= solo_launches:
+        fail(f"rows sched: {pair_launches} front-end launches for the "
+             f"pair, not fewer than the solo runs' {solo_launches}")
+    counts = read_counts()
+    say(f"rows: launches in phase 10's runs {counts} (the host Tier-1 "
+        "path runs no kernel)")
+    if any(counts.values()):
+        fail(f"rows: phase 10 launched kernels {counts}")
+    return {"counts": counts}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -2598,6 +2877,9 @@ def main() -> None:
         t9 = time.perf_counter()
         service = phase_service(main_res, ref, workdir)
         say(f"phase 9 (the service) {time.perf_counter() - t9:.1f} s")
+        t10 = time.perf_counter()
+        phase_rows(img, main_res, ref)
+        say(f"phase 10 (the host Tier-1) {time.perf_counter() - t10:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -174,7 +174,11 @@ def test_converter_split_equals_default(tmp_path, monkeypatch):
 
 
 def test_host_tier1_still_raises():
-    with pytest.raises(NotImplementedError, match="host Tier-1"):
-        t_encoder.encode_jp2(_photo(5, 32, 32), 8,
-                             t_encoder.EncodeParams(device_mq=False),
-                             device="cpu")
+    """device_mq=False without device_cxd once raised (the host Tier-1
+    was not ported); it now codes on the host Tier-1, with the fused
+    path's bytes."""
+    img = _photo(5, 32, 32)
+    host = t_encoder.encode_jp2(img, 8,
+                                t_encoder.EncodeParams(device_mq=False),
+                                device="cpu")
+    assert host == t_encoder.encode_jp2(img, 8, device="cpu")

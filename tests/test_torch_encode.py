@@ -114,15 +114,16 @@ def test_cuda_converter_on_cpu_matches_jax(tmp_path, monkeypatch):
                                 {"device_mq": False, "device_cxd": False},
                                 {"tile_size": 96, "levels": 2}])
 def test_unported_cases_raise(kw):
-    """Cases outside this package raise instead of taking another path:
-    the host Tier-1 (device_mq=False without device_cxd), and a tile
-    grid whose sub-bands straddle the 64-grid (the JAX package codes it
-    with the host Tier-1). The CX/D split is tested in
-    tests/test_torch_cxd_split.py."""
+    """The cases this package once refused with NotImplementedError —
+    the host Tier-1 (device_mq=False without device_cxd) and a tile grid
+    whose sub-bands straddle the 64-grid — now code, byte-identical to
+    the JAX encoder with the same parameters (its host Tier-1 in both).
+    The CX/D split is tested in tests/test_torch_cxd_split.py."""
     img = _photo(7, 192, 96)
-    with pytest.raises(NotImplementedError):
-        t_encoder.encode_jp2(img, 8, t_encoder.EncodeParams(**kw),
-                             device="cpu")
+    ref = j_encoder.encode_jp2(img, 8, j_encoder.EncodeParams(**kw))
+    got = t_encoder.encode_jp2(img, 8, t_encoder.EncodeParams(**kw),
+                               device="cpu")
+    assert got == ref
 
 
 def test_mesh_raises():

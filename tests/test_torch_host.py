@@ -160,3 +160,27 @@ def test_decode_code_is_a_copy(rel, cls):
     got, ref = (_code_without_docstrings(os.path.join(REPO, pkg, rel), cls)
                 for pkg in ("bucketeer_tpu_torch", "bucketeer_tpu"))
     assert got == ref
+
+
+def _cpp_code(path: str) -> list:
+    """A C++ source's code lines: ``//`` comments, trailing blanks and
+    empty lines dropped."""
+    out = []
+    for line in open(path).read().splitlines():
+        code = line.split("//", 1)[0].rstrip()
+        if code:
+            out.append(code)
+    return out
+
+
+def test_host_coder_is_a_copy():
+    """csrc/host_t1.cpp is the JAX package's native/t1.cpp: the block
+    coder, its thread pool and all three entries, line for line; only
+    comments (the file note with its build line among them) differ."""
+    got = _cpp_code(os.path.join(REPO, "bucketeer_tpu_torch", "csrc",
+                                 "host_t1.cpp"))
+    ref = _cpp_code(os.path.join(REPO, "bucketeer_tpu", "native",
+                                 "t1.cpp"))
+    assert got == ref
+    for entry in ("t1_encode_blocks", "t1_encode_packed", "t1_encode_cxd"):
+        assert any(entry + "(" in line for line in got)

@@ -268,7 +268,7 @@ def test_failed_device_launch_propagates_to_the_request(sched,
     hanging."""
     from bucketeer_tpu_torch.codec import frontend
 
-    def fake_dispatch(plan, tiles, device=None):
+    def fake_dispatch(plan, tiles, mode="mq", device=None):
         raise ValueError("bad launch")
 
     monkeypatch.setattr(frontend, "dispatch_frontend", fake_dispatch)
@@ -285,9 +285,9 @@ def test_failed_device_launch_propagates_to_the_request(sched,
 def test_request_on_another_device_type_raises(sched):
     with pytest.raises(ValueError, match="cpu"):
         sched.encode_jp2(_images(1, 8, seed=1)[0], 8, device="cuda")
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="unknown front-end mode"):
         sched.dispatch_frontend(object(), np.zeros((1, 8, 8), np.uint8),
-                                mode="rows")
+                                mode="tensor")
 
 
 @pytest.mark.parametrize("kind", ["tensor", "batchread"])
