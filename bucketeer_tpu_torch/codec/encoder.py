@@ -581,21 +581,44 @@ def _band_weight(slot, gains) -> float:
 
 def _legacy_tier1(groups: dict, plans: dict, img: np.ndarray,
                   params: EncodeParams, used_mct: bool, gains,
-                  weight_of_slot: dict, device, tm: dict):
-    """Host Tier-1 over raw coefficient planes, for tile grids whose
-    sub-bands *straddle* global 64-grid cells (a tile size divisible by
-    2^levels but not a multiple of 64, e.g. 96): the device front-end
-    cannot blockify these, so each shape group is transformed on
-    ``device`` in one batch, its planes come back to the host, and the
+                  weight_of_slot: dict, device, tm: dict, mesh=None):
+    """Host Tier-1 over raw coefficient planes: each shape group is
+    transformed in one batch, its planes come back to the host, and the
     code-blocks are sliced there, clipped to the global cell grid, and
-    coded by t1_batch.encode_blocks. Tile sizes whose global band rects
-    disagree with the local Mallat geometry never reach here —
-    encode_array raises for those. ``tm`` gains the transform and
-    copy-back seconds ("device") and the slicing and coding seconds
-    ("host").
+    coded by t1_batch.encode_blocks. Two callers:
+
+    - tile grids whose sub-bands *straddle* global 64-grid cells (a tile
+      size divisible by 2^levels but not a multiple of 64, e.g. 96): the
+      device front-end cannot blockify these, so the transform runs on
+      ``device``. Tile sizes whose global band rects disagree with the
+      local Mallat geometry never reach here — encode_array raises for
+      those.
+    - mesh-sharded encodes (``mesh`` not None): the transform runs
+      data-parallel over the mesh (parallel.batch.run_tiles_sharded), or
+      row-sharded with DWT halo copies for a single giant tile
+      (parallel.sharded_dwt.sharded_transform_tile), on the mesh's own
+      devices.
+
+    ``tm`` gains the transform and copy-back seconds ("device") and the
+    slicing and coding seconds ("host").
 
     Returns (tile_records, coded blocks, weights, qcd_values)."""
     from .pipeline import extract_bands, run_tiles
+
+    if mesh is not None:
+        from ..parallel.batch import run_tiles_sharded
+        from ..parallel.mesh import TILE_AXIS
+        from ..parallel.sharded_dwt import (can_row_shard,
+                                            sharded_transform_tile)
+
+    def transform(plan: TilePlan, batch: np.ndarray) -> np.ndarray:
+        if mesh is None:
+            return run_tiles(plan, batch, device=device)
+        n_rows = mesh.shape[TILE_AXIS]
+        if (batch.shape[0] == 1 and n_rows > 1
+                and can_row_shard(plan.tile_h, plan.levels, n_rows)):
+            return sharded_transform_tile(plan, batch[0], mesh)[None]
+        return run_tiles_sharded(plan, batch, mesh)
 
     specs: list = []
     dests: list = []
@@ -607,7 +630,7 @@ def _legacy_tier1(groups: dict, plans: dict, img: np.ndarray,
         t0 = time.perf_counter()
         batch = np.stack([img[y0:y0 + th, x0:x0 + tw]
                           for _, y0, x0 in members])
-        planes = run_tiles(plan, batch, device=device)
+        planes = transform(plan, batch)
         t1_ = time.perf_counter()
         tm["device"] += t1_ - t0
         if qcd_values is None:
@@ -724,18 +747,23 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
     encode's Tier-1 volume — code-blocks and MQ bytes of the final pass
     set, and the coded symbols where the Tier-1 counts them (the host
     block coder does not: ``"symbols"`` is then absent).
-    ``mesh`` (a sharded encode) is not supported by this package yet.
+    ``mesh``: optional DeviceMesh (parallel.mesh.make_mesh) of
+    ``device``'s type. When given, the sample transform runs on the
+    mesh's devices — data-parallel over tile batches, or row-sharded
+    with DWT halo copies for a single giant tile — and Tier-1 runs on
+    host planes (the same bytes as the single-device encode).
     """
     params = params or EncodeParams()
+    if mesh is not None and mesh.device_type != torch.device(device).type:
+        raise ValueError(
+            f"a mesh of {mesh.device_type} devices asked of an encode on "
+            f"{device}: build the mesh on {torch.device(device).type} "
+            "devices")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"encode on {device} asked for, but CUDA is unavailable: this "
             "torch build or machine has no usable CUDA device (pass "
             "device=\"cpu\" to encode on the host)")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded encodes (the JAX package's data/tile mesh) are "
-            "not ported yet (ROADMAP A.11); encode on one device")
     if params.device_mq is not False:
         mode = "mq"
     elif params.device_cxd:
@@ -797,14 +825,15 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
           "mq_dev": 0.0}
     t_wall0 = time.perf_counter()
     svc = current_services()
-    if "straddle" in states:
-        # Host-side block slicing for grids whose sub-bands straddle the
-        # global 64-grid cells, whatever Tier-1 the params asked for.
+    if mesh is not None or "straddle" in states:
+        # Host-side block slicing, whatever Tier-1 the params asked for:
+        # sharded transforms (mesh) or grids whose sub-bands straddle
+        # the global 64-grid cells.
         if svc is not None and svc.check is not None:
             svc.check()
         tile_records, all_coded, block_weights, qcd_values = \
             _legacy_tier1(groups, plans, img, params, used_mct, gains,
-                          weight_of_slot, device, tm)
+                          weight_of_slot, device, tm, mesh=mesh)
         if _metrics_sink is not None:
             _record_encode("legacy", tm, time.perf_counter() - t_wall0,
                            h * w, 0, 0)

@@ -127,12 +127,11 @@ def _mallat(ll: torch.Tensor, bands: list) -> torch.Tensor:
     return ll
 
 
-def _transform_batch(plan: TilePlan, step_map: torch.Tensor | None,
-                     batch: torch.Tensor) -> torch.Tensor:
-    """(B, h, w, C) samples -> (B, C, h, w) int32 quantizer indices
-    (lossless: exact integer coefficients; lossy: fixed point with
-    FRAC_BITS fractional bits). ``step_map`` is ``_step_map(plan)`` on
-    the batch's device, or None for a lossless plan."""
+def _prologue(plan: TilePlan, batch: torch.Tensor) -> torch.Tensor:
+    """(B, h, w, C) samples -> (B, C, h, w) level-shifted,
+    colour-transformed planes, int32 (lossless) or float32 (lossy).
+    Elementwise, so the row-sharded transform
+    (parallel/sharded_dwt.py) runs it on each shard as it stands."""
     x = batch.to(torch.int32)
     x = level_shift_forward(x, plan.bitdepth)
     if plan.used_mct:
@@ -141,13 +140,39 @@ def _transform_batch(plan: TilePlan, step_map: torch.Tensor | None,
         ycc = x[..., None] if x.ndim == 3 else x
         if not plan.lossless:
             ycc = ycc.to(torch.float32)
-    planes = torch.movedim(ycc, -1, 1)            # (B, C, h, w)
-    ll, bands = dwt2d_forward(planes, plan.levels,
-                              reversible=plan.lossless)
-    coeffs = _mallat(ll, bands)
+    return torch.movedim(ycc, -1, 1)
+
+
+def _epilogue(plan: TilePlan, step_map: torch.Tensor | None,
+              coeffs: torch.Tensor) -> torch.Tensor:
+    """Mallat-layout coefficients -> int32 quantizer indices (lossless:
+    the exact integers; lossy: fixed point with FRAC_BITS fractional
+    bits). ``step_map`` is ``_step_map(plan)`` on the coefficients'
+    device, or None for a lossless plan."""
     if plan.lossless:
         return coeffs.to(torch.int32).contiguous()
     return quantize_fp(coeffs, step_map).contiguous()
+
+
+def _transform_batch(plan: TilePlan, step_map: torch.Tensor | None,
+                     batch: torch.Tensor) -> torch.Tensor:
+    """(B, h, w, C) samples -> (B, C, h, w) int32 quantizer indices on
+    whatever device the batch lies on: :func:`_prologue`, the DWT, the
+    Mallat layout, :func:`_epilogue`."""
+    ll, bands = dwt2d_forward(_prologue(plan, batch), plan.levels,
+                              reversible=plan.lossless)
+    return _epilogue(plan, step_map, _mallat(ll, bands))
+
+
+def _stageable(tiles: np.ndarray) -> np.ndarray:
+    """A host batch in a dtype torch can stage: the transform widens to
+    int32/float32 first; torch has no uint16 arithmetic, and an 8-byte
+    host dtype would double the copy."""
+    if tiles.dtype in (np.int64, np.uint16):
+        return tiles.astype(np.int32)
+    if tiles.dtype == np.float64:
+        return tiles.astype(np.float32)
+    return tiles
 
 
 def run_tiles(plan: TilePlan, tiles: np.ndarray,
@@ -156,15 +181,10 @@ def run_tiles(plan: TilePlan, tiles: np.ndarray,
     returns (B, C, h, w) int32 on the host."""
     if tiles.ndim == 3:
         tiles = tiles[..., None]
-    # The transform widens to int32/float32 first; torch has no uint16
-    # arithmetic, and an 8-byte host dtype would double the copy.
-    if tiles.dtype in (np.int64, np.uint16):
-        tiles = tiles.astype(np.int32)
-    elif tiles.dtype == np.float64:
-        tiles = tiles.astype(np.float32)
     step_map = (None if plan.lossless else
                 torch.as_tensor(_step_map(plan), device=device))
-    staged = torch.as_tensor(np.ascontiguousarray(tiles), device=device)
+    staged = torch.as_tensor(np.ascontiguousarray(_stageable(tiles)),
+                             device=device)
     return _transform_batch(plan, step_map, staged).cpu().numpy()
 
 

@@ -7,6 +7,7 @@ Cuse_eph=yes``; lossless = reversible 5/3 + RCT, lossy = irreversible
 """
 from __future__ import annotations
 
+import logging
 import os
 import threading
 
@@ -15,22 +16,39 @@ from ..codec import tiff
 from ..codec.encoder import EncodeParams
 from .base import Conversion, ConverterError, output_path
 
+LOG = logging.getLogger(__name__)
+
 LOSSY_RATE = 3.0    # reference: -rate 3 (KakaduConverter.java:43)
+
+# Images at or above this pixel count route through a device mesh over
+# every visible device of the converter's type whenever there are two or
+# more: a single giant tile is row-sharded (parallel.sharded_dwt), a
+# tiled image's batches are data-sharded (parallel.batch.
+# run_tiles_sharded). The default is sized so ordinary scans stay on the
+# single-device pipeline and only archival monsters (BASELINE config 4's
+# 400 MPix maps) pay the mesh path. Override: the ``mesh_min_pixels``
+# argument or the bucketeer.mesh.min.pixels config key (engine/batch.py).
+DEFAULT_MESH_MIN_PIXELS = 64_000_000
 
 
 class CudaConverter:
-    """JPEG 2000 encoding on one CUDA device (or, for tests, the CPU).
+    """JPEG 2000 encoding on CUDA devices (or, for tests, the CPU).
     Every encode is one admitted request of a scheduler
     (engine/scheduler.py): ``scheduler``, else the process-wide one for
-    ``device``'s type (``get_scheduler``)."""
+    ``device``'s type (``get_scheduler``). Images of ``mesh_min_pixels``
+    or more go through a mesh over every visible device of that type
+    when there are two or more (:meth:`_choose_mesh`)."""
 
     name = "CUDA"
 
     def __init__(self, device="cuda", device_cxd: bool | None = None,
                  device_mq: bool | None = None,
                  lossy_rate: float = LOSSY_RATE, jpx: bool = True,
-                 scheduler=None) -> None:
+                 scheduler=None, mesh_min_pixels: int | None = None) -> None:
         self.device = device
+        self.mesh_min_pixels = (DEFAULT_MESH_MIN_PIXELS
+                                if mesh_min_pixels is None
+                                else mesh_min_pixels)
         # Tier-1 placement, passed into EncodeParams as the JAX
         # package's TpuConverter does: device_mq=False with
         # device_cxd=True runs the CX/D split (device scan, host MQ
@@ -70,6 +88,31 @@ class CudaConverter:
         params.base_delta *= (1 << (bitdepth - 8))
         return params
 
+    def _choose_mesh(self, h: int, w: int, params: EncodeParams):
+        """Mesh routing for over-threshold images: a ('data', 'tile')
+        mesh over every visible device of the converter's type —
+        all-spatial when the image is a single row-shardable tile,
+        all-data otherwise. None keeps the single-device pipeline."""
+        if self.mesh_min_pixels <= 0 or h * w < self.mesh_min_pixels:
+            return None
+        from ..parallel import mesh as mesh_mod
+        from ..parallel.sharded_dwt import can_row_shard
+
+        devices = mesh_mod.visible_devices(self.device)
+        if len(devices) < 2:
+            return None
+        if params.tile_size is None:
+            # A single tile can only parallelize spatially. If its rows
+            # don't shard, a data mesh would pad the batch of one up to
+            # n_devices full-size zero tiles (parallel/batch.py) — all
+            # host memory and transfer, zero speedup — so stay on the
+            # single-device pipeline instead.
+            if can_row_shard(h, params.levels, len(devices)):
+                return mesh_mod.make_mesh(devices,
+                                          tile_parallel=len(devices))
+            return None
+        return mesh_mod.make_mesh(devices, tile_parallel=1)
+
     def convert(self, image_id: str, source_path: str,
                 conversion: Conversion = Conversion.LOSSLESS, *,
                 priority: int | None = None,
@@ -94,13 +137,17 @@ class CudaConverter:
 
         h, w = img.shape[:2]
         params = self.encode_params(h, w, bitdepth, conversion)
+        mesh = self._choose_mesh(h, w, params)
+        if mesh is not None:
+            LOG.info("routing %s (%dx%d) through the device mesh %s",
+                     image_id, w, h, mesh.shape)
         sched = self.scheduler or sched_mod.get_scheduler(self.device)
         stats: dict = {}
         try:
             with obs.span("convert.encode", image_id=image_id,
                           pixels=h * w):
                 data = sched.encode_jp2(
-                    img, bitdepth, params, jpx=self.jpx,
+                    img, bitdepth, params, jpx=self.jpx, mesh=mesh,
                     priority=(sched_mod.PRIORITY_SINGLE if priority is None
                               else priority),
                     deadline_s=deadline_s, device=self.device,

@@ -13,9 +13,8 @@ through the *same* status-update seam the external Lambda would use
 sources are uploaded to the lambda bucket and a real Lambda PATCHes
 statuses back.
 
-Left out of the JAX module: the mesh-routing threshold and the XLA
-compile cache (the port has no mesh yet, and builds its kernels once
-into ``bucketeer_tpu_torch/build/``).
+Left out of the JAX module: the XLA compile cache (the port builds its
+kernels once into ``bucketeer_tpu_torch/build/``).
 """
 from __future__ import annotations
 
@@ -65,6 +64,17 @@ class BatchConverterWorker:
         self.config = config
         self.counters = counters
         self._rng = random.Random(0)
+        # Mesh routing threshold: batch items at/above this pixel count
+        # encode across a device mesh (converters/cuda.py routes a giant
+        # single tile row-sharded, tiled batches data-sharded) whenever
+        # two or more devices are visible — the in-process analog of the
+        # reference's large-image peer routing. The config key overrides
+        # the converter's built-in default so the fleet is tunable per
+        # deployment.
+        mesh_px = config.get_int(cfg.MESH_MIN_PIXELS, 0)
+        if mesh_px and hasattr(converter, "mesh_min_pixels"):
+            converter.mesh_min_pixels = mesh_px
+            LOG.info("mesh routing threshold set to %d pixels", mesh_px)
         # Tier-1 split (converters/cuda.py): the config keys override
         # the converter's defaults, so one properties file selects the
         # CX/D split for either package.

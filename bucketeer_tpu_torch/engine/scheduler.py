@@ -683,11 +683,16 @@ class EncodeScheduler:
                      stats: dict | None = None) -> bytes:
         """``codec.encoder.encode_array`` as one admitted request.
         ``device`` (default: the pool's type) must be of the pool's
-        type; the front-end runs on a pool device."""
+        type; the front-end runs on a pool device. A ``mesh`` encode
+        (its devices of the pool's type too) runs its sharded transform
+        on the mesh's devices in the request thread and codes on the
+        host, as the encoder does without a scheduler."""
         from ..codec import encoder as encoder_mod
 
         device = self.device_type if device is None else device
         self._check_device(device)
+        if mesh is not None:
+            self._check_device(mesh.device_type, "a mesh encode")
         return self.submit(encoder_mod.encode_array, img, bitdepth,
                            params, mesh=mesh, device=device, stats=stats,
                            priority=priority, deadline_s=deadline_s)
@@ -703,6 +708,8 @@ class EncodeScheduler:
 
         device = self.device_type if device is None else device
         self._check_device(device)
+        if mesh is not None:
+            self._check_device(mesh.device_type, "a mesh encode")
         return self.submit(encoder_mod.encode_jp2, img, bitdepth,
                            params, jpx=jpx, mesh=mesh, device=device,
                            stats=stats, priority=priority,

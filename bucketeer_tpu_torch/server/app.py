@@ -12,9 +12,7 @@ served at ``/docs/openapi.yaml``.
 
 Left out of the JAX app: the XLA retrace and Pallas-downgrade metric
 sinks (the port compiles no XLA programs and never downgrades a
-kernel), and the batch data plane — ``POST /batches``,
-``GET /batches/{id}`` and its metrics sink — which waits for the
-multi-GPU slice (ROADMAP A.11).
+kernel).
 
 Router quirks kept for parity:
 - ``/upload`` redirects to the CSV upload form
@@ -115,6 +113,11 @@ class Api:
         # tensor.decode segments, tensor.* counters).
         from .. import tensor as tensor_mod
         tensor_mod.set_metrics_sink(self.metrics)
+        # Batch data plane: assembly seconds, per-item failure counts —
+        # the scheduler side (merged dequant launches, batchread.*
+        # occupancy) already reports via its own sink.
+        from .. import batches as batches_mod
+        batches_mod.set_metrics_sink(self.metrics)
         # Ingest-robustness counters: retry attempts, dead letters,
         # breaker transitions (engine/retry.py) and journal records /
         # truncated-tail recoveries (engine/journal.py) all land in the
@@ -487,6 +490,128 @@ class Api:
             headers={"X-Tensor-Shape": "x".join(map(str, arr.shape)),
                      "X-Tensor-Dtype": dtype})
 
+    # --- batch data plane (bucketeer_tpu_torch/batches) -----------------
+    async def post_batches(self, request: web.Request) -> web.Response:
+        """Assemble a coefficient batch on ``engine.device`` from a JSON
+        recipe. One admitted ``batchread`` request covers the whole
+        batch (admission 503 + Retry-After, per-batch deadline, priority
+        between interactive reads and bulk encodes); per-item decode
+        failures land as typed entries in the returned manifest, not
+        an all-or-nothing error. ``store=true`` writes a progressive
+        ``BTB1`` container beside the derivatives and returns its
+        handle; otherwise the batched bands stream back as one npz."""
+        from .. import batches as batches_mod
+        from ..converters.base import output_path
+
+        try:
+            doc = await request.json()
+        except Exception:
+            return _error_page(400, "request body must be a JSON object")
+        try:
+            recipe = batches_mod.parse_recipe(doc)
+        except InvalidParam as exc:
+            return _error_page(400, str(exc))
+        self.metrics.count("batchread.requests")
+        try:
+            with self.metrics.time("batch_assemble"):
+                result = await asyncio.to_thread(
+                    self.scheduler.submit_batchread,
+                    batches_mod.assemble_batch, recipe,
+                    deadline_s=recipe.deadline_s,
+                    device=self.engine.device)
+        except InvalidParam as exc:
+            # Request-shaped problems found past parsing (unknown ids,
+            # mixed geometry, reduce beyond the coded levels).
+            return _error_page(400, str(exc))
+        except (QueueFull, DeadlineExceeded) as exc:
+            return _unavailable(str(exc),
+                                getattr(exc, "retry_after", 1))
+        except DecodeError as exc:
+            self.metrics.count("batchread.failures")
+            return _error_page(500, f"batch assembly failed: {exc}")
+        if not recipe.store:
+            return await asyncio.to_thread(_batch_response, result)
+        batch_id = uuid.uuid4().hex
+        blob = await asyncio.to_thread(
+            batches_mod.encode_batch, result, planes=recipe.planes)
+        path = output_path(batch_id, ".btb")
+        tmp = f"{path}.{os.getpid()}.{id(blob):x}.part"
+        def _write():
+            with open(tmp, "wb") as fh:
+                fh.write(blob)
+            os.replace(tmp, path)
+        await asyncio.to_thread(_write)
+        stats = await asyncio.to_thread(batches_mod.batch_stats, blob)
+        stats["batch-id"] = batch_id
+        return web.json_response(stats, status=201)
+
+    async def get_batch(self, request: web.Request) -> web.Response:
+        """Read a stored batch container back: ``planes=k`` serves the
+        progressive low-plane-first cut (BTT1 truncation per band),
+        ``format=blob`` returns the raw (possibly truncated) BTB1
+        container, ``format=npz`` (default) decodes to the per-band
+        host arrays. Decode work is admitted at batchread priority."""
+        import io
+
+        import numpy as np
+
+        from .. import batches as batches_mod
+        from ..converters.base import output_path
+
+        batch_id = urllib.parse.unquote(request.match_info["batch_id"])
+        fmt = request.query.get("format", "npz")
+        if fmt not in ("npz", "blob"):
+            return _error_page(400, f"unknown format: {fmt}")
+        try:
+            planes = (int(request.query["planes"])
+                      if "planes" in request.query else None)
+        except ValueError:
+            return _error_page(400, "planes must be an integer")
+        if planes is not None and planes < 1:
+            return _error_page(400, "planes must be >= 1")
+        path = output_path(batch_id, ".btb")
+        exists = await asyncio.to_thread(os.path.exists, path)
+        if not exists:
+            return _error_page(404, f"no stored batch: {batch_id}")
+        def _read():
+            with open(path, "rb") as fh:
+                return fh.read()
+        blob = await asyncio.to_thread(_read)
+        try:
+            if fmt == "blob":
+                if planes is not None:
+                    blob = await asyncio.to_thread(
+                        batches_mod.truncate_batch, blob, planes)
+                return web.Response(
+                    body=blob,
+                    content_type="application/octet-stream",
+                    headers={"X-Batch-Format": "btb1"})
+            with self.metrics.time("batch_decode"):
+                header, bands = await asyncio.to_thread(
+                    self.scheduler.submit_batchread,
+                    batches_mod.decode_batch, blob, planes=planes)
+        except InvalidParam as exc:
+            return _error_page(400, str(exc))
+        except (QueueFull, DeadlineExceeded) as exc:
+            return _unavailable(str(exc),
+                                getattr(exc, "retry_after", 1))
+        except DecodeError as exc:
+            LOG.warning("batch decode failed for %s: %s",
+                        batch_id, exc)
+            self.metrics.count("batchread.decode_failures")
+            return _error_page(500, f"batch decode failed: {exc}")
+        def _serialize():
+            buf = io.BytesIO()
+            np.savez(buf, **{f"r{res}_{name}": arr
+                             for (res, name), arr in bands.items()})
+            return buf.getvalue()
+        body = await asyncio.to_thread(_serialize)
+        meta = {k: header.get(k) for k in
+                ("ids", "layout", "meta", "manifest")}
+        return web.Response(
+            body=body, content_type="application/octet-stream",
+            headers={"X-Batch-Meta": json.dumps(meta)})
+
     # --- loadImagesFromCSV (reference: handlers/LoadCsvHandler.java:100-230) ---
     async def load_csv(self, request: web.Request) -> web.Response:
         reader = await request.multipart() if request.content_type.startswith(
@@ -734,6 +859,32 @@ def _coefficients_response(cs) -> web.Response:
         headers={"X-Coeff-Meta": json.dumps(meta)})
 
 
+def _batch_response(result) -> web.Response:
+    """Serialize a BatchResult: one npz stream of the (N, C, Hb, Wb)
+    batched bands (key ``r{res}_{name}``) + an X-Batch-Meta JSON
+    header carrying the geometry, the achieved layout, and the
+    per-item manifest (typed failures included)."""
+    import io
+
+    import numpy as np
+
+    host = result.to_host()
+    buf = io.BytesIO()
+    np.savez(buf, **{f"r{res}_{name}": arr
+                     for (res, name), arr in host.items()})
+    meta = {
+        "ids": list(result.ids),
+        "layout": result.layout,
+        "meta": result.meta,
+        "manifest": result.manifest,
+        "deltas": {f"r{res}_{name}": delta
+                   for (res, name), delta in result.deltas.items()},
+    }
+    return web.Response(
+        body=buf.getvalue(), content_type="application/octet-stream",
+        headers={"X-Batch-Meta": json.dumps(meta)})
+
+
 def _tensor_npy(arr) -> tuple:
     """A decoded tensor as ``.npy`` bytes and its dtype name. numpy has
     no bfloat16: a CPU ``torch.bfloat16`` tensor is written as the JAX
@@ -871,8 +1022,8 @@ def build_app(engine: Engine | None = None,
     app.router.add_get("/images/{image_id}/{file_path:.+}", api.load_image)
     app.router.add_post("/tensors/{tensor_id}", api.put_tensor)
     app.router.add_get("/tensors/{tensor_id}", api.get_tensor)
-    # POST /batches and GET /batches/{batch_id} (the JAX app's batch
-    # data plane) are not served yet: ROADMAP A.11.
+    app.router.add_post("/batches", api.post_batches)
+    app.router.add_get("/batches/{batch_id}", api.get_batch)
     app.router.add_post("/batch/input/csv", api.load_csv)
     app.router.add_patch(
         "/batch/jobs/{job_name}/{image_id:.+}/{success:(?:true|false)}",

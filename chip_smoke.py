@@ -134,7 +134,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    concurrent lossless rows converts of phase 5's and phase 8's images
    through one scheduler, each equal to its solo run, with fewer
    front-end launches (merged) than the solo runs' sum;
-11. one JSON line with every kernel, then the card line and the result
+11. the mesh and the batch data plane on the card: (a) phase 5's image
+   as one tile, lossless, 6 levels, on a 1x4 mesh of the card repeated
+   (row shards, DWT halo copies between them, the host block coder): the
+   file equals the single-device encode, with the wall, the sharded
+   transform by CUDA events, the halo bytes, a synchronized breakdown
+   and peak device memory; then the lossy transform (9/7 + ICT) on the
+   mesh against run_tiles, max |delta| <= 1 index on < 1 % of samples;
+   (b) an 8192x8192 TIFF from --seed + 3 (the least square at or above
+   the converter's mesh threshold), Kakadu recipe, lossless, on a 4x1
+   mesh of the card repeated: the file equals CudaConverter().convert's,
+   which does not route on one card (with two cards or more, the
+   converter's routed file across them too); (c) a batch read through
+   the process-wide scheduler, the launch counts set to 0 before and
+   read after: phase 5's and phase 8's lossless derivatives, a copy of
+   the first and a truncated copy at reduce 4: exactly one failed item,
+   the bands equal the per-image coefficient reads and lie on the card,
+   the merged dequantizer launches printed; encode_batch launches
+   fused_t1 (timed by CUDA events beside its bound) and round-trips
+   through decode_batch exactly, and truncate_batch equals a floored
+   encode_batch after decode;
+12. one JSON line with every kernel, then the card line and the result
    line.
 """
 from __future__ import annotations
@@ -2833,6 +2853,320 @@ def phase_rows(img, main_res: dict, ref: dict) -> dict:
     return {"counts": counts}
 
 
+# --- phase 11: the mesh and batches on the card ------------------------------
+
+MESH_SHARDS = 4             # entries of (a)'s and (b)'s meshes: the card, repeated
+MESH_SIZE = 8192            # (b): the least square at or above the mesh threshold
+BATCH_REDUCE = 4            # (c): resolution levels the batch read drops
+BATCH_PLANES = 26           # (c): the progressive cut held against a floored encode
+
+
+def halo_bytes(comps: int, width: int, levels: int, shards: int) -> int:
+    """Bytes the row-sharded DWT copies between row-neighbour shards: at
+    each level every inner boundary sends HALO rows of 4-byte samples
+    each way."""
+    from bucketeer_tpu_torch.parallel.sharded_dwt import HALO
+
+    return sum((shards - 1) * 2 * HALO * comps * (width >> lvl) * 4
+               for lvl in range(levels))
+
+
+class MeshEvents:
+    """CUDA events around a mesh transform's device work: recorded on
+    entry to ``module.<name>`` and on the return of each of its calls
+    to ``module.<last>`` (the step before the planes go to the host)."""
+
+    def __init__(self, module, name: str, last: str):
+        self.module, self.name, self.last = module, name, last
+        self.pairs = []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+        self.real_last = getattr(self.module, self.last)
+
+        def entry(*a):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self.pairs.append([start, None])
+            return self.real(*a)
+
+        def last(*a):
+            out = self.real_last(*a)
+            stop = torch.cuda.Event(enable_timing=True)
+            stop.record()
+            self.pairs[-1][1] = stop
+            return out
+
+        setattr(self.module, self.name, entry)
+        setattr(self.module, self.last, last)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        setattr(self.module, self.last, self.real_last)
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def mesh_stages(module, name: str) -> list:
+    """A mesh encode's stages: the transform on the mesh (planes back
+    on the host), the host block coder, PCRD + Tier-2; block slicing is
+    the rest of the wall."""
+    from bucketeer_tpu_torch.codec import encoder, t1_batch
+
+    return [(f"transform on the mesh ({name}, planes to the host)",
+             module, name),
+            ("host coder (encode_blocks)", t1_batch, "encode_blocks"),
+            ("pcrd + tier-2", encoder, "_finish")]
+
+
+def mesh_encode(label: str, encode, stages, events, pixels: int) -> tuple:
+    """One mesh encode, synchronized stage by stage, the launch counts
+    set to 0 before and read after (the mesh path runs no kernel)."""
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with StageTimer(stages) as stt, events:
+        t0 = time.perf_counter()
+        data = encode()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    counts = read_counts()
+    say(f"mesh {label} (synchronized): wall {wall:.3f} s, "
+        f"{pixels / wall / 1e6:.3f} MPix/s, {len(data)} B = {stt.line()}, "
+        f"block slicing and other {wall - sum(stt.seconds.values()):.3f} s;"
+        f" transform {events.ms():.3f} ms on the card by CUDA events; peak "
+        f"device memory {peak:.1f} MiB; launches {counts}")
+    if any(counts.values()):
+        fail(f"mesh {label}: the mesh path launched kernels {counts}")
+    return data, wall
+
+
+def phase_mesh(img, main_res: dict, ref: dict, workdir: str,
+               seed: int) -> dict:
+    """Phase 11: the mesh and the batch data plane on the card. (a) phase
+    5's image as one tile, lossless, 6 levels, on a 1 x MESH_SHARDS mesh
+    of the card repeated (row shards with halo copies): the file equals
+    the single-device encode; then the lossy transform alone against
+    run_tiles. (b) a MESH_SIZE^2 TIFF from --seed + 3, Kakadu recipe,
+    lossless, on a MESH_SHARDS x 1 mesh of the card repeated: the file
+    equals CudaConverter().convert's, which on one card does not route
+    (and, with two cards or more, the converter's own routed file too).
+    (c) a batch read through get_scheduler("cuda").submit_batchread, the
+    launch counts set to 0 before and read after: phase 5's and phase
+    8's lossless derivatives, a copy of the first and a truncated copy,
+    reduce BATCH_REDUCE; one failed item, the bands equal to per-image
+    coefficient reads and on the card; encode_batch launches fused_t1
+    and round-trips exactly; the progressive cut equals a floored
+    encode."""
+    import dataclasses
+
+    from bucketeer_tpu_torch.batches import (BatchRecipe, assemble_batch,
+                                             decode_batch, encode_batch,
+                                             truncate_batch)
+    from bucketeer_tpu_torch.codec import cxd, encoder, pipeline, tiff
+    from bucketeer_tpu_torch.converters import (Conversion, CudaConverter,
+                                                CudaReader)
+    from bucketeer_tpu_torch.converters.cuda import DEFAULT_MESH_MIN_PIXELS
+    from bucketeer_tpu_torch.engine import get_scheduler
+    from bucketeer_tpu_torch.kernels import fused_t1
+    from bucketeer_tpu_torch.parallel import batch as pbatch
+    from bucketeer_tpu_torch.parallel import make_mesh
+    from bucketeer_tpu_torch.parallel import sharded_dwt as sdwt
+    from bucketeer_tpu_torch.server.metrics import Metrics
+
+    LL, LY = Conversion.LOSSLESS, Conversion.LOSSY
+    h, w = img.shape[:2]
+    conv = CudaConverter()
+    cards = torch.cuda.device_count()
+
+    # (a) one tile, rows split over the mesh.
+    params = dataclasses.replace(conv.encode_params(h, w, 8, LL),
+                                 tile_size=None)
+    spatial = make_mesh(["cuda:0"] * MESH_SHARDS, tile_parallel=MESH_SHARDS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = encoder.encode_jp2(img, 8, params, jpx=True, device="cuda")
+    torch.cuda.synchronize()
+    single_wall = time.perf_counter() - t0
+    got, wall = mesh_encode(
+        f"spatial {spatial.shape} lossless {w}x{h} one tile, "
+        f"{params.levels} levels",
+        lambda: encoder.encode_jp2(img, 8, params, jpx=True, mesh=spatial,
+                                   device="cuda"),
+        mesh_stages(sdwt, "sharded_transform_tile"),
+        MeshEvents(sdwt, "sharded_transform_tile", "_epilogue"), h * w)
+    say(f"mesh spatial: {h // MESH_SHARDS} rows per shard, "
+        f"{h // MESH_SHARDS >> params.levels} at the coarsest level; halo "
+        f"copies {halo_bytes(3, w, params.levels, MESH_SHARDS)} B; the "
+        f"single-device encode (fused device Tier-1) {single_wall:.3f} s; "
+        f"file identical to it: {got == single}")
+    if got != single:
+        fail("mesh spatial: the file differs from the single-device encode")
+    lp = conv.encode_params(h, w, 8, LY)
+    plan = pipeline.make_plan(
+        h, w, 3, lp.levels, False, 8, lp.base_delta,
+        use_mct=encoder._mct_helps(img, False, lp.rate, lp.base_delta))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded = sdwt.sharded_transform_tile(plan, img, spatial)
+    t_sharded = time.perf_counter() - t0
+    whole = pipeline.run_tiles(plan, img[None], device="cuda")[0]
+    diff = np.abs(sharded.astype(np.int64) - whole)
+    n_diff = int(np.count_nonzero(diff))
+    say(f"mesh spatial lossy transform (9/7 + ICT, fixed point): sharded "
+        f"{t_sharded:.3f} s with the copy to the host; against run_tiles "
+        f"max |delta| {int(diff.max())} index, {n_diff} of {diff.size} "
+        f"samples differ ({n_diff / diff.size:.6%})")
+    if diff.max() > 1 or n_diff >= 0.01 * diff.size:
+        fail("mesh spatial lossy: the sharded transform strays from "
+             "run_tiles")
+    del sharded, whole, diff
+
+    # (b) a tiled image at the converter's threshold, tiles split over
+    # the data axis.
+    big = photo(np.random.default_rng(seed + 3), MESH_SIZE, MESH_SIZE)
+    src = os.path.join(workdir, "smoke-map.tif")
+    write_tiff(src, big)
+    H = W = MESH_SIZE
+    if H * W < DEFAULT_MESH_MIN_PIXELS:
+        fail(f"{H}x{W} is below the mesh threshold")
+    bparams = conv.encode_params(H, W, 8, LL)
+    routed = conv._choose_mesh(H, W, bparams)
+    say(f"mesh data: {W}x{H} ({H * W / 1e6:.1f} MPix) against the threshold "
+        f"{DEFAULT_MESH_MIN_PIXELS}; {cards} card(s): the converter's mesh "
+        f"{None if routed is None else routed.shape}")
+    if cards == 1 and routed is not None:
+        fail("mesh data: the converter routed an image on one card")
+    single_conv = CudaConverter(mesh_min_pixels=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with open(single_conv.convert("smoke-map", src, LL), "rb") as fh:
+        want = fh.read()
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    data_mesh = make_mesh(["cuda:0"] * MESH_SHARDS, tile_parallel=1)
+    sched = get_scheduler("cuda")
+
+    def mesh_convert():
+        im, bits = tiff.read_image(src)
+        return sched.encode_jp2(im, bits, bparams, jpx=True, mesh=data_mesh)
+
+    got, wall = mesh_encode(
+        f"data {data_mesh.shape} lossless {W}x{H} tile {bparams.tile_size} "
+        f"(TIFF read included)", mesh_convert,
+        mesh_stages(pbatch, "run_tiles_sharded"),
+        MeshEvents(pbatch, "run_tiles_sharded", "_transform_batch"), H * W)
+    say(f"mesh data: the single-device convert (fused device Tier-1) "
+        f"{ref_wall:.3f} s, {H * W / ref_wall / 1e6:.3f} MPix/s; file "
+        f"identical to it: {got == want}")
+    if got != want:
+        fail("mesh data: the file differs from CudaConverter().convert's")
+    if cards >= 2:
+        t0 = time.perf_counter()
+        with open(conv.convert("smoke-map-routed", src, LL), "rb") as fh:
+            across = fh.read()
+        say(f"mesh data: across the {cards} cards through the converter "
+            f"{time.perf_counter() - t0:.3f} s; identical: {across == want}")
+        if across != want:
+            fail("mesh data: the converter's routed file differs")
+    else:
+        say("mesh data: one card, so the run across cards was not made")
+    del big
+
+    # (c) a batch read on the card.
+    first, second = main_res["files"][LL], ref["files2"][LL]
+    blobs = {"smoke-1": first, "smoke-2": second, "smoke-1-copy": first,
+             "smoke-1-cut": first[:len(first) // 2]}
+    paths = {}
+    for image_id in ("smoke-1", "smoke-2"):
+        paths[image_id] = os.path.join(workdir, f"{image_id}-batch.jpx")
+        with open(paths[image_id], "wb") as fh:
+            fh.write(blobs[image_id])
+    reader = CudaReader(device="cuda")
+    refs = {i: reader.read_coefficients(p, reduce=BATCH_REDUCE).to_host()
+            for i, p in paths.items()}
+    layout = "sharded" if 3 % cards == 0 else "replicated"
+    recipe = BatchRecipe(ids=tuple(blobs), reduce=BATCH_REDUCE,
+                         layout=layout)
+    sink = Metrics()
+    sched.set_metrics_sink(sink)
+    reset_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = sched.submit_batchread(assemble_batch, recipe,
+                                        data_for=blobs.get, device="cuda")
+        torch.cuda.synchronize()
+        asm_wall = time.perf_counter() - t0
+    finally:
+        sched.set_metrics_sink(None)
+    report = sink.report()
+    counters = report.get("counters", {})
+    occ = report.get("values", {}).get("batchread.batch_occupancy", {})
+    failed = [e for e in result.manifest if not e["ok"]]
+    say(f"batch: {len(blobs)} items, reduce {BATCH_REDUCE}, layout "
+        f"{result.layout} over {result.meta['n_devices']} device(s): "
+        f"assembly {asm_wall:.3f} s; dequantizer launches "
+        f"{counters.get('batchread.device_launches', 0)} for "
+        f"{counters.get('batchread.merged_images', 0)} images (occupancy "
+        f"max {occ.get('max', 0):.0f}); manifest {result.manifest}")
+    if len(failed) != 1 or failed[0]["id"] != "smoke-1-cut":
+        fail(f"batch: the manifest's failures are {failed}, not the "
+             "truncated copy alone")
+    if result.ids != ("smoke-1", "smoke-2", "smoke-1-copy"):
+        fail(f"batch: surviving ids {result.ids}")
+    host = result.to_host()
+    for key, arr in host.items():
+        want_band = np.stack([refs[i][key] for i in
+                              ("smoke-1", "smoke-2", "smoke-1")])
+        if not np.array_equal(arr, want_band):
+            fail(f"batch: band {key} differs from the coefficient reads")
+    off = [key for key, parts in result.bands.items()
+           if any(p.device.type != "cuda" for p in parts)]
+    if off:
+        fail(f"batch: bands {off} are not on the card")
+    say(f"batch: {len(host)} bands ({result.nbytes} B) equal the stacked "
+        f"coefficient reads (CudaReader.read_coefficients) band for band; "
+        f"every band on the card")
+    timer = LaunchTimer(fused_t1, cxd.fused_t1, _fused_volume)
+    cxd.fused_t1 = timer
+    try:
+        with timer:
+            t0 = time.perf_counter()
+            blob = encode_batch(result)
+            torch.cuda.synchronize()
+            enc_wall = time.perf_counter() - t0
+    finally:
+        cxd.fused_t1 = timer.fn
+    kms = timer.kernel_ms()
+    bound = sum(b[0] for b in timer.bounds(fused_bound))
+    _, back = decode_batch(blob)
+    exact = set(back) == set(host) and all(
+        np.array_equal(back[k], host[k]) for k in host)
+    cut = truncate_batch(blob, BATCH_PLANES)
+    _, cut_bands = decode_batch(cut)
+    _, floored = decode_batch(encode_batch(result, planes=BATCH_PLANES))
+    same_cut = all(np.array_equal(cut_bands[k], floored[k]) for k in host)
+    counts = read_counts()
+    say(f"batch: encode_batch {enc_wall:.3f} s, {len(blob)} B; fused_t1 "
+        f"{len(timer.launches)} launches, kernel {kms:.3f} ms by CUDA "
+        f"events, bound {bound:.6f} ms; round trip exact: {exact}; "
+        f"truncate_batch(planes={BATCH_PLANES}) ({len(cut)} B) equals the "
+        f"floored encode after decode: {same_cut}; launches in (c) {counts}")
+    if not timer.launches or counts["fused_t1"] < len(timer.launches):
+        fail(f"batch: encode_batch launched fused_t1 {counts['fused_t1']} "
+             f"times, {len(timer.launches)} timed")
+    if not exact:
+        fail("batch: the stored batch does not decode to its bands")
+    if not same_cut:
+        fail("batch: the progressive cut differs from the floored encode")
+    return {"counts": counts}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -2880,6 +3214,10 @@ def main() -> None:
         t10 = time.perf_counter()
         phase_rows(img, main_res, ref)
         say(f"phase 10 (the host Tier-1) {time.perf_counter() - t10:.1f} s")
+        t11 = time.perf_counter()
+        mesh = phase_mesh(img, main_res, ref, workdir, args.seed)
+        say(f"phase 11 (the mesh and batches) "
+            f"{time.perf_counter() - t11:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2888,12 +3226,16 @@ def main() -> None:
     tl = tensors["launches"]
     sl = sched["counts"]
     vl = service["counts"]
+    bl = mesh["counts"]
     launches = {"fused_t1": (counts["fused"]["fused_t1"] + tl["fused_t1"]
-                             + sl["fused_t1"] + vl["fused_t1"]),
+                             + sl["fused_t1"] + vl["fused_t1"]
+                             + bl["fused_t1"]),
                 "cxd_scan": (counts["split"]["cxd_scan"] + tl["cxd_scan"]
-                             + sl["cxd_scan"] + vl["cxd_scan"]),
+                             + sl["cxd_scan"] + vl["cxd_scan"]
+                             + bl["cxd_scan"]),
                 "probe": (counts["fused"]["probe"] + counts["split"]["probe"]
-                          + tl["probe"] + sl["probe"] + vl["probe"]),
+                          + tl["probe"] + sl["probe"] + vl["probe"]
+                          + bl["probe"]),
                 # No encode path runs mq_scan (the JAX package has no call
                 # site for mq_pallas either): its count is the whole run's,
                 # every launch a check against plain or fused_t1.
@@ -2903,13 +3245,15 @@ def main() -> None:
                          "process-wide scheduler); tensor codec, device "
                          "backend; the scheduler's concurrent converts and "
                          "merged tensor launches (phase 8); the service's "
-                         "single-image requests and fused CSV job (phase 9)",
+                         "single-image requests and fused CSV job (phase 9);"
+                         " the stored batch's bands (encode_batch, phase 11)",
              "cxd_scan": "split main path (through the process-wide "
                          "scheduler); tensor codec, replay backend; the "
                          "scheduler's concurrent split converts (phase 8); "
                          "the service's split CSV job (phase 9)",
              "probe": "first launch of each main path, tensor encode, "
-                      "the scheduler's phase and each service part",
+                      "the scheduler's phase, each service part and the "
+                      "batch phase",
              "mq_scan": "none: the oracle surface; launches of the whole "
                         "run's kernel checks"}
     source = {"fused_t1": "fused_t1.cu", "cxd_scan": "cxd_scan.cu",

@@ -127,9 +127,20 @@ def test_unported_cases_raise(kw):
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        t_encoder.encode_jp2(_photo(8, 16, 16), 8, mesh=object(),
+    """A mesh of another device type than the encode's raises; a mesh of
+    the encode's type codes the single-device bytes (the mesh path's
+    parity with the JAX package is tests/test_torch_parallel.py)."""
+    from bucketeer_tpu_torch.parallel import make_mesh
+
+    img = _photo(8, 16, 16)
+    params = t_encoder.EncodeParams(lossless=True)
+    with pytest.raises(ValueError, match="mesh"):
+        t_encoder.encode_jp2(img, 8, params, mesh=make_mesh(["cuda:0"]),
                              device="cpu")
+    got = t_encoder.encode_jp2(img, 8, params,
+                               mesh=make_mesh(["cpu"] * 2), device="cpu")
+    assert got == t_encoder.encode_jp2(img, 8, t_encoder.EncodeParams(
+        lossless=True, device_mq=False), device="cpu")
 
 
 def _tiff(tmp_path, name, img):

@@ -78,7 +78,15 @@ def test_port_imports_no_jax_and_no_jax_package():
             "bucketeer_tpu_torch.engine.workers",
             "bucketeer_tpu_torch.engine.batch",
             "bucketeer_tpu_torch.engine.core",
-            "bucketeer_tpu_torch.engine.chaos"} <= set(res["modules"])
+            "bucketeer_tpu_torch.engine.chaos",
+            "bucketeer_tpu_torch.parallel",
+            "bucketeer_tpu_torch.parallel.mesh",
+            "bucketeer_tpu_torch.parallel.batch",
+            "bucketeer_tpu_torch.parallel.sharded_dwt",
+            "bucketeer_tpu_torch.batches",
+            "bucketeer_tpu_torch.batches.recipe",
+            "bucketeer_tpu_torch.batches.store",
+            "bucketeer_tpu_torch.batches.assemble"} <= set(res["modules"])
     bad = [m for m in res["new"]
            if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "bucketeer_tpu" or m.startswith("bucketeer_tpu.")
@@ -91,7 +99,7 @@ def _port_sources() -> list:
     paths = [os.path.join(d, f) for d, _, files in os.walk(root)
              for f in files if f.endswith(".py")]
     return sorted(paths) + [os.path.join(REPO, f) for f in (
-        "chip_smoke.py", "t1_ab.py", "sched_pool_ab.py")]
+        "chip_smoke.py", "t1_ab.py", "sched_pool_ab.py", "mesh_cards.py")]
 
 
 def test_port_sources_name_no_jax_import():
@@ -140,7 +148,14 @@ def test_port_sources_name_no_jax_import():
             "bucketeer_tpu_torch/engine/batch.py",
             "bucketeer_tpu_torch/engine/core.py",
             "bucketeer_tpu_torch/engine/chaos.py",
-            "chip_smoke.py", "t1_ab.py", "sched_pool_ab.py"} <= rel
+            "bucketeer_tpu_torch/parallel/mesh.py",
+            "bucketeer_tpu_torch/parallel/batch.py",
+            "bucketeer_tpu_torch/parallel/sharded_dwt.py",
+            "bucketeer_tpu_torch/batches/recipe.py",
+            "bucketeer_tpu_torch/batches/store.py",
+            "bucketeer_tpu_torch/batches/assemble.py",
+            "chip_smoke.py", "t1_ab.py", "sched_pool_ab.py",
+            "mesh_cards.py"} <= rel
     offenders = []
     for path in paths:
         with open(path) as fh:

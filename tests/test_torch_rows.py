@@ -342,12 +342,18 @@ def test_straddling_grid_equals_jax(shape, tile, levels):
 
 
 def test_mismatch_grid_and_mesh_still_raise():
+    """A "mismatch" grid raises, with a mesh or without; a mesh of
+    another device type than the encode's raises."""
+    from bucketeer_tpu_torch.parallel import make_mesh
+
     img = _photo(26, 100, 100, 1)
-    with pytest.raises(NotImplementedError, match="Mallat"):
-        t_encoder.encode_jp2(img, 8, t_encoder.EncodeParams(
-            levels=2, tile_size=50, **ROWS), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        t_encoder.encode_jp2(img, 8, mesh=object(), device="cpu")
+    for mesh in (None, make_mesh(["cpu"] * 2)):
+        with pytest.raises(NotImplementedError, match="Mallat"):
+            t_encoder.encode_jp2(img, 8, t_encoder.EncodeParams(
+                levels=2, tile_size=50, **ROWS), mesh=mesh, device="cpu")
+    with pytest.raises(ValueError, match="mesh of cuda"):
+        t_encoder.encode_jp2(img, 8, mesh=make_mesh(["cuda:0"]),
+                             device="cpu")
 
 
 def test_rows_encode_on_cuda_without_a_card_raises(monkeypatch):

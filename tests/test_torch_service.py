@@ -8,19 +8,29 @@ The one allowed difference is ``/config``'s ``converters`` key, where the
 port reports ``"cuda"`` for the JAX app's ``"tpu"`` (ALLOWED_DIFFERENCE).
 Values that carry wall-clock time (timings, request ids, ``/metrics``
 seconds, uptime) are compared by key; counters by value. Paths are
-compared after each world's root directory is replaced by ``<ROOT>``.
+compared after each world's root directory is replaced by ``<ROOT>``,
+and a stored batch's id (a uuid4 per app) after it is replaced by
+``<BATCH>``. Binary bodies are compared by content: an npz by each
+array's dtype, shape and bytes, anything else by its bytes. The port's
+batch mesh spans 8 CPU entries, as the JAX app's spans the 8 CPU devices
+conftest.py forces (``X-Batch-Meta`` carries the device count).
 
 The chaos CLI (``python -m <package>.engine.chaos``, kill then resume)
 prints the same summary, output-CSV sha256 included, for both packages.
 """
 import asyncio
+import contextlib
+import functools
 import hashlib
+import io
 import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+import torch
 from aiohttp import FormData
 
 import bucketeer_tpu.engine.faults as j_faults
@@ -29,7 +39,10 @@ import bucketeer_tpu_torch.engine.faults as t_faults
 import bucketeer_tpu_torch.engine.scheduler as t_sched
 from bucketeer_tpu import config as j_cfg
 from bucketeer_tpu import features as j_features
+from bucketeer_tpu.codec import encoder as j_encoder
+from bucketeer_tpu.codec.encoder import EncodeParams as JParams
 from bucketeer_tpu.converters import ConverterError as JConverterError
+from bucketeer_tpu.converters import output_path as j_output_path
 from bucketeer_tpu.engine import Engine as JEngine
 from bucketeer_tpu.engine import FakeS3Client as JFakeS3
 from bucketeer_tpu.engine import RecordingSlackClient as JSlack
@@ -37,15 +50,21 @@ from bucketeer_tpu.server.app import build_app as j_build_app
 from bucketeer_tpu_torch import config as t_cfg
 from bucketeer_tpu_torch import features as t_features
 from bucketeer_tpu_torch.converters import ConverterError as TConverterError
+from bucketeer_tpu_torch.converters import output_path as t_output_path
 from bucketeer_tpu_torch.engine import Engine as TEngine
 from bucketeer_tpu_torch.engine import FakeS3Client as TFakeS3
 from bucketeer_tpu_torch.engine import RecordingSlackClient as TSlack
+from bucketeer_tpu_torch.parallel import mesh as t_pmesh
 from bucketeer_tpu_torch.server.app import build_app as t_build_app
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # /config's converter report names the in-process encoder by package.
 ALLOWED_DIFFERENCE = {("converters", "tpu"): ("converters", "cuda")}
+# The JAX app counts each XLA compile of a jitted stage (retrace.<stage>,
+# the first time a process runs it); the port compiles no XLA program and
+# has no such counter (server/app.py says so).
+JAX_ONLY_COUNTERS = "retrace."
 
 CSV_TEXT = "Item ARK,File Name\nark:/1/a,imgA.tif\nark:/1/b,imgB.tif\n"
 
@@ -53,10 +72,13 @@ PACKAGES = {
     "jax": dict(cfg=j_cfg, features=j_features, Engine=JEngine,
                 FakeS3=JFakeS3, Slack=JSlack, build_app=j_build_app,
                 ConverterError=JConverterError, sched=j_sched,
+                scheduler=j_sched.get_scheduler, output_path=j_output_path,
                 faults=j_faults, engine_kw={}),
     "torch": dict(cfg=t_cfg, features=t_features, Engine=TEngine,
                   FakeS3=TFakeS3, Slack=TSlack, build_app=t_build_app,
                   ConverterError=TConverterError, sched=t_sched,
+                  scheduler=functools.partial(t_sched.get_scheduler, "cpu"),
+                  output_path=t_output_path,
                   faults=t_faults, engine_kw={"device": "cpu"}),
 }
 
@@ -99,6 +121,11 @@ class World:
         p = PACKAGES[pkg]
         self.pkg, self.root = pkg, root
         self.faults = p["faults"]
+        self.sched = p["sched"]
+        self.scheduler = p["scheduler"]
+        self.output_path = p["output_path"]
+        # Values replaced by a name of their own in the logs.
+        self.aliases = {}
         cfg = p["cfg"]
         for name in ("imgA.tif", "imgB.tif", "one.tif", "bad.tif"):
             (root / name).write_bytes(b"II*\x00")
@@ -127,9 +154,12 @@ class World:
         self.log = []
 
     def norm(self, value):
-        """``value`` with this world's root directory replaced."""
+        """``value`` with this world's root directory and aliases
+        replaced."""
         root = str(self.root)
         if isinstance(value, str):
+            for real, name in self.aliases.items():
+                value = value.replace(real, name)
             return value.replace(root, "<ROOT>")
         if isinstance(value, dict):
             return {self.norm(k): self.norm(v) for k, v in value.items()}
@@ -143,14 +173,19 @@ class World:
                                          allow_redirects=False, **kw)
         if resp.content_type == "application/json":
             body = await resp.json()
+        elif resp.content_type == "application/octet-stream":
+            body = _binary(await resp.read())
         else:
             body = await resp.text()
         entry = {"step": step, "status": resp.status,
                  "content_type": resp.content_type,
                  "body": self.norm(body)}
-        for header in ("Retry-After", "Location"):
+        for header in ("Retry-After", "Location", "X-Batch-Format"):
             if header in resp.headers:
                 entry[header] = resp.headers[header]
+        if "X-Batch-Meta" in resp.headers:
+            entry["X-Batch-Meta"] = json.loads(resp.headers["X-Batch-Meta"])
+        self.headers = resp.headers
         self.log.append(entry)
         return resp.status, body
 
@@ -175,6 +210,19 @@ class World:
                 "csv": self.norm(csvs)}
 
 
+def _binary(data: bytes) -> dict:
+    """What an octet-stream body holds: an npz's arrays by name (dtype,
+    shape, sha256 of the bytes — the archive itself carries write
+    times), anything else by its length, magic and sha256."""
+    if data[:2] == b"PK":
+        with np.load(io.BytesIO(data)) as npz:
+            return {"npz": {k: [str(a.dtype), list(a.shape),
+                                hashlib.sha256(a.tobytes()).hexdigest()]
+                            for k, a in sorted(npz.items())}}
+    return {"bytes": len(data), "magic": data[:4].decode("latin-1"),
+            "sha256": hashlib.sha256(data).hexdigest()}
+
+
 def _metrics_delta(before, after):
     """The part of two /metrics reports that the script decides: the
     stages it timed (by name), its counter increments (by value), the
@@ -185,7 +233,7 @@ def _metrics_delta(before, after):
                     if count(after, k) != count(before, k))
     c0, c1 = before.get("counters", {}), after.get("counters", {})
     counters = {k: v - c0.get(k, 0) for k, v in c1.items()
-                if v != c0.get(k, 0)}
+                if v != c0.get(k, 0) and not k.startswith(JAX_ONLY_COUNTERS)}
     return {"stages": stages, "counters": counters,
             "breakers": after.get("breakers"),
             "has": sorted(k for k in ("uptime_s", "stages", "sched")
@@ -341,6 +389,147 @@ async def script_queue_full(w):
     assert status == 503
 
 
+# --- the batch data plane: tests/test_batches_api.py's cases ---------------
+
+@functools.lru_cache(maxsize=None)
+def _batch_item(i: int) -> bytes:
+    """Item ``i``: a reversible derivative from the JAX encoder, 16 px,
+    one level, low amplitude (the port codes a stored batch's bands with
+    fused_t1's plain version on the CPU, seconds per bit-plane here)."""
+    rng = np.random.default_rng(300 + i)
+    img = 128 + rng.integers(-1, 2, size=(16, 16, 3))
+    return j_encoder.encode_jp2(
+        img.astype(np.uint8), 8,
+        JParams(lossless=True, levels=1, tile_size=16, gen_plt=True),
+        jpx=True)
+
+
+def _write_batch_items(w, n=2) -> list:
+    """n compatible derivatives under the world's derivative directory;
+    returns their ids."""
+    ids = [f"batch-img{i}" for i in range(n)]
+    for i, image_id in enumerate(ids):
+        with open(w.output_path(image_id, ".jpx"), "wb") as fh:
+            fh.write(_batch_item(i))
+    return ids
+
+
+@contextlib.contextmanager
+def _merge_window(w, seconds=2.0):
+    """A merge window long enough that an item's dequantizer launch
+    always waits for its siblings' (the launch count is then the same
+    in both apps, whatever the threads' timing)."""
+    sched = w.scheduler()
+    old = sched.window_s
+    sched.configure(window_s=seconds)
+    try:
+        yield
+    finally:
+        sched.configure(window_s=old)
+
+
+async def script_batches_npz(w):
+    """POST /batches: one npz of the batched bands, X-Batch-Meta, the
+    request id echoed."""
+    ids = _write_batch_items(w)
+    with _merge_window(w):
+        status, _ = await w.call("batch npz", "POST", "/batches",
+                                 json={"ids": ids},
+                                 headers={"X-Request-Id": "batch-req-1"})
+    assert status == 200
+    assert w.headers["X-Request-Id"] == "batch-req-1"
+    meta = w.log[-1]["X-Batch-Meta"]
+    assert meta["ids"] == ids
+    assert meta["layout"] == "replicated"      # 2 items, 8 devices
+    assert [e["ok"] for e in meta["manifest"]] == [True, True]
+
+
+async def script_batches_partial(w):
+    """A derivative truncated mid-codestream fails alone: a typed
+    manifest row, the others in the npz."""
+    ids = _write_batch_items(w, n=3)
+    with open(w.output_path(ids[1], ".jpx"), "wb") as fh:
+        fh.write(_batch_item(1)[:len(_batch_item(1)) // 2])
+    with _merge_window(w):
+        status, body = await w.call("batch partial failure", "POST",
+                                    "/batches", json={"ids": ids})
+    assert status == 200
+    meta = w.log[-1]["X-Batch-Meta"]
+    assert [e["ok"] for e in meta["manifest"]] == [True, False, True]
+    assert all(v[1][0] == 2 for v in body["npz"].values())
+
+
+async def script_batches_store_get(w):
+    """store=true: 201 with the stored batch's handle; GET it back as an
+    npz, at planes=1, and as the raw container, whole and truncated."""
+    ids = _write_batch_items(w)
+    with _merge_window(w):
+        status, stats = await w.call("batch store", "POST", "/batches",
+                                     json={"ids": ids, "store": True})
+    assert status == 201 and stats["ids"] == ids
+    batch_id = stats["batch-id"]
+    w.aliases[batch_id] = "<BATCH>"
+    await w.call("get npz", "GET", f"/batches/{batch_id}")
+    await w.call("get planes=1", "GET", f"/batches/{batch_id}?planes=1")
+    _, cut = await w.call("get blob planes=1", "GET",
+                          f"/batches/{batch_id}?format=blob&planes=1")
+    _, whole = await w.call("get blob", "GET",
+                            f"/batches/{batch_id}?format=blob")
+    assert cut["magic"] == "BTB1" and cut["bytes"] < whole["bytes"]
+
+
+async def script_batches_planes_floor(w):
+    """A stored batch floored at planes=1 codes fewer bytes."""
+    ids = _write_batch_items(w)
+    with _merge_window(w):
+        _, floored = await w.call("store planes=1", "POST", "/batches",
+                                  json={"ids": ids, "store": True,
+                                        "planes": 1})
+        _, full = await w.call("store full", "POST", "/batches",
+                               json={"ids": ids, "store": True})
+    for stats in (floored, full):
+        w.aliases[stats["batch-id"]] = "<BATCH>"
+    assert floored["coded_bytes"] < full["coded_bytes"]
+
+
+async def script_batches_400s(w):
+    """Every malformed recipe and GET query is a typed 400; an unknown
+    batch a 404."""
+    ids = _write_batch_items(w)
+    await w.call("not json", "POST", "/batches", data=b"\x00not-json")
+    for step, doc in [
+            ("no ids", {}), ("empty ids", {"ids": []}),
+            ("unknown key", {"ids": ids, "bogus": 1}),
+            ("zero region", {"ids": ids, "region": [0, 0, 0, 4]}),
+            ("bad dtype", {"ids": ids, "dtype": "int8"}),
+            ("planes without store", {"ids": ids, "planes": 2}),
+            ("unknown id", {"ids": ["no-such-item"]}),
+            ("reduce beyond", {"ids": ids, "reduce": 5}),
+            ("dtype mismatch", {"ids": ids, "dtype": "float32"})]:
+        status, _ = await w.call(step, "POST", "/batches", json=doc)
+        assert status == 400, step
+    for step, path in [("get bad format", "/batches/x?format=xml"),
+                       ("get planes word", "/batches/x?planes=zero"),
+                       ("get planes 0", "/batches/x?planes=0"),
+                       ("get unknown", "/batches/no-such-batch")]:
+        await w.call(step, "GET", path)
+
+
+async def script_batches_503(w):
+    """QueueFull on POST /batches is a 503 with Retry-After, the same
+    ladder as every other admitted kind."""
+    ids = _write_batch_items(w)
+    w.faults.install(w.faults.FaultPlan().at(
+        "sched.submit", lambda: w.sched.QueueFull(1, 2.5, "batchread"),
+        times=1))
+    try:
+        status, _ = await w.call("batch queue full", "POST", "/batches",
+                                 json={"ids": ids})
+        assert status == 503
+    finally:
+        w.faults.install(None)
+
+
 def _expect_uploads(n):
     def check(out):
         assert len(out["bucket"]["objects"]) == n
@@ -375,6 +564,20 @@ SCRIPTS = {
     "journal_down": (script_journal_down, {
         "overrides": {j_cfg.JOB_JOURNAL_DIR: "<ROOT>/journal"}},
         _expect_job(["succeeded", "succeeded"])),
+    # The batch scripts read and write derivatives under the world's
+    # root (BUCKETEER_TMPDIR).
+    "batches_npz": (script_batches_npz, {"tmpdir": True},
+                    _expect_uploads(0)),
+    "batches_partial": (script_batches_partial, {"tmpdir": True},
+                        _expect_uploads(0)),
+    "batches_store_get": (script_batches_store_get, {"tmpdir": True},
+                          _expect_uploads(0)),
+    "batches_planes_floor": (script_batches_planes_floor,
+                             {"tmpdir": True}, _expect_uploads(0)),
+    "batches_400s": (script_batches_400s, {"tmpdir": True},
+                     _expect_uploads(0)),
+    "batches_503": (script_batches_503, {"tmpdir": True},
+                    _expect_uploads(0)),
 }
 
 
@@ -392,16 +595,29 @@ def _allow(log):
 
 @pytest.mark.parametrize("name", sorted(SCRIPTS))
 async def test_both_apps_answer_the_script_alike(name, tmp_path,
-                                                 aiohttp_client):
+                                                 aiohttp_client,
+                                                 monkeypatch):
     script, kw, check = SCRIPTS[name]
+    kw = dict(kw)
+    own_tmpdir = kw.pop("tmpdir", False)
+    # The port's batch mesh: 8 CPU entries, as JAX's 8 CPU devices.
+    monkeypatch.setattr(t_pmesh, "visible_devices",
+                        lambda device="cuda": [torch.device("cpu")] * 8)
+    if own_tmpdir:
+        # Encoded before either app's /metrics baseline is read.
+        for i in range(3):
+            _batch_item(i)
     results = {}
     for pkg in ("jax", "torch"):
         root = tmp_path / pkg
         root.mkdir()
+        if own_tmpdir:
+            monkeypatch.setenv("BUCKETEER_TMPDIR", str(root))
         w = World(pkg, root, **kw)
         w.client = await aiohttp_client(w.app)
         before = await (await w.client.get("/metrics")).json()
         await script(w)
+        w.log = w.norm(w.log)
         after = await (await w.client.get("/metrics")).json()
         prom = await w.client.get("/metrics?format=prometheus")
         results[pkg] = {
