@@ -8,14 +8,14 @@ and the MQ coder in one kernel per launch group (codec/cxd.py,
 kernels/fused_t1.py) — or, with ``device_mq=False, device_cxd=True``,
 the CX/D split: the CX/D scan alone on the device (kernels/cxd_scan.py)
 and the MQ replay of its symbols on the host (codec/t1_batch.py) — or,
-with ``device_mq=False`` and ``device_cxd`` unset or False, the host
-Tier-1: bit-planes packed on the device (front-end mode "rows"), the
-planes each block codes gathered and copied to the host, and context
-modeling and MQ coding there in C++ (t1_batch.encode_packed). All three
-give byte-identical output -> [host] PCRD-opt layer allocation
-(codec/rate.py) -> Tier-2 packets with precincts, any of the five
-progressions, SOP/EPH/PLT markers and per-resolution tile-parts ->
-codestream -> JP2/JPX boxes.
+with ``device_mq=False`` (or unset off a CUDA device: _tier1_mode) and
+``device_cxd`` unset or False, the host Tier-1: bit-planes packed on the
+device (front-end mode "rows"), the planes each block codes gathered and
+copied to the host, and context modeling and MQ coding there in C++
+(t1_batch.encode_packed). All three give byte-identical output -> [host]
+PCRD-opt layer allocation (codec/rate.py) -> Tier-2 packets with
+precincts, any of the five progressions, SOP/EPH/PLT markers and
+per-resolution tile-parts -> codestream -> JP2/JPX boxes.
 
 Tiles are grouped by shape and cut into chunks of CHUNK_TILES tiles;
 each chunk's front-end and Tier-1 work is queued on the device's stream
@@ -138,12 +138,13 @@ class EncodeParams:
     tparts_r: bool = False             # tile-part per resolution (ORGtparts=R)
     mct: str = "auto"                  # multi-component transform: auto|on|off
     comment: str = "bucketeer-tpu jp2 encoder"
-    # Tier-1 placement, as in the JAX package. device_mq None or True:
-    # the fused device Tier-1 (MQ wins over device_cxd, as the JAX
-    # package picks on a TPU). device_mq=False with device_cxd=True: the
-    # CX/D split, device scan and host MQ replay. device_mq=False
-    # without device_cxd: the host Tier-1 over bit-planes packed on the
-    # device (front-end mode "rows").
+    # Tier-1 placement, as in the JAX package (_tier1_mode below).
+    # device_mq=True: the fused device Tier-1 (MQ wins over device_cxd).
+    # device_mq=None: the fused Tier-1 on a CUDA device, as the JAX
+    # package picks it on a TPU; elsewhere as device_mq=False.
+    # device_mq=False with device_cxd=True: the CX/D split, device scan
+    # and host MQ replay. device_mq=False without device_cxd: the host
+    # Tier-1 over bit-planes packed on the device (front-end mode "rows").
     device_cxd: bool | None = None
     device_mq: bool | None = None
 
@@ -764,12 +765,7 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
             f"encode on {device} asked for, but CUDA is unavailable: this "
             "torch build or machine has no usable CUDA device (pass "
             "device=\"cpu\" to encode on the host)")
-    if params.device_mq is not False:
-        mode = "mq"
-    elif params.device_cxd:
-        mode = "cxd"
-    else:
-        mode = "rows"
+    mode = _tier1_mode(params, device)
     h, w = img.shape[:2]
     n_comps = 1 if img.ndim == 2 else img.shape[2]
     if n_comps not in (1, 3):
@@ -1226,6 +1222,29 @@ def _qcd_values(plan: TilePlan) -> list:
         else:
             vals.append((slot.quant.exponent, slot.quant.mantissa))
     return vals
+
+
+def _tier1_mode(params: EncodeParams, device) -> str:
+    """The front-end mode that places this encode's Tier-1: "mq" (the
+    fused fused_t1 kernel), "cxd" (the cxd_scan split with the host MQ
+    replay) or "rows" (the host block coder over planes packed on the
+    device).
+
+    An explicit ``device_mq`` wins: True is "mq" on any device. With
+    ``device_mq=None`` the fused Tier-1 runs on a CUDA device only —
+    the card is this port's accelerator, so this is the JAX package's
+    "device MQ on a TPU" default (bucketeer_tpu.codec.encoder
+    ``_device_mq``). Off the card, as the JAX package off a TPU, the
+    plain versions of the scans would emulate the device, so the encode
+    takes the split when ``device_cxd`` is set and the host Tier-1
+    otherwise. Nothing here reads the environment.
+    """
+    use_mq = params.device_mq
+    if use_mq is None:
+        use_mq = torch.device(device).type == "cuda"
+    if use_mq:
+        return "mq"
+    return "cxd" if params.device_cxd else "rows"
 
 
 def encode_jp2(img: np.ndarray, bitdepth: int = 8,

@@ -266,14 +266,16 @@ class PendingFrontend:
                               rows=self.rows, block_base=off)
 
 
-def dispatch_frontend(plan: TilePlan, tiles: np.ndarray, mode: str = "mq",
+def dispatch_frontend(plan: TilePlan, tiles: np.ndarray, mode: str = "rows",
                       device: str | torch.device = "cuda"
                       ) -> PendingFrontend:
     """Queue transform + blockify + stats (and, in mode "rows", the
     bit-plane packing) for a (B, h, w[, C]) tile batch on ``device`` and
-    return without waiting for the result. Modes "mq" (the fused device
-    Tier-1) and "cxd" (the CX/D split) run the same program and keep the
-    blocks; the names tell the pipelines apart."""
+    return without waiting for the result. Mode "rows" (the default, as
+    in the JAX package) packs the bit-planes for the host Tier-1; modes
+    "mq" (the fused device Tier-1) and "cxd" (the CX/D split) run the
+    same program and keep the blocks; the names tell the pipelines
+    apart."""
     if mode not in MODES:
         raise ValueError(f"unknown front-end mode {mode!r}; modes are "
                          f"{MODES}")

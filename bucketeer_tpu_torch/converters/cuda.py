@@ -53,8 +53,9 @@ class CudaConverter:
         # package's TpuConverter does: device_mq=False with
         # device_cxd=True runs the CX/D split (device scan, host MQ
         # replay), device_mq=False without it the host Tier-1 (bit-planes
-        # packed on the card, coded on the host's cores); the defaults
-        # run the fused device Tier-1.
+        # packed on the card, coded on the host's cores); None leaves the
+        # choice to the encoder (encoder._tier1_mode: the fused device
+        # Tier-1 on a CUDA device, the host Tier-1 or the split elsewhere).
         self.device_cxd = device_cxd
         self.device_mq = device_mq
         self.lossy_rate = lossy_rate

@@ -40,13 +40,13 @@ reads, :meth:`CudaReader.read_coefficients`) runs on the reader's
 from __future__ import annotations
 
 import os
-import threading
 import time
 from collections import OrderedDict
 
 import numpy as np
 
 from .. import obs
+from ..analysis.graftrace import seam
 from ..codec.decode import DecodeError, build_index, decode
 from ..codec.decode import probe as _probe
 from ..codec.decode import t1_dec
@@ -81,15 +81,17 @@ class _DecodeCache:
 
     def __init__(self, max_bytes: int) -> None:
         self.max_bytes = max_bytes
-        self._lock = threading.Lock()
+        self._lock = seam.make_lock("_DecodeCache._lock")
         self._entries: OrderedDict = OrderedDict()
         self._bytes = 0
         self.evictions = 0
 
     def get(self, key):
         with self._lock:
+            seam.read(self, "_entries")
             arr = self._entries.get(key)
             if arr is not None:
+                seam.write(self, "_entries")
                 self._entries.move_to_end(key)
             return arr
 
@@ -103,14 +105,20 @@ class _DecodeCache:
             arr.setflags(write=False)
         evicted_here = 0
         with self._lock:
+            seam.write(self, "_entries")
             old = self._entries.pop(key, None)
             if old is not None:
+                seam.write(self, "_bytes")
                 self._bytes -= old.nbytes
             self._entries[key] = arr
+            seam.write(self, "_bytes")
             self._bytes += arr.nbytes
             while self._bytes > self.max_bytes and self._entries:
+                seam.write(self, "_entries")
                 _, evicted = self._entries.popitem(last=False)
+                seam.write(self, "_bytes")
                 self._bytes -= evicted.nbytes
+                seam.write(self, "evictions")
                 self.evictions += 1
                 evicted_here += 1
         return evicted_here
@@ -131,24 +139,28 @@ class _IndexCache:
 
     def __init__(self, max_entries: int) -> None:
         self.max_entries = max_entries
-        self._lock = threading.Lock()
+        self._lock = seam.make_lock("_IndexCache._lock")
         self._entries: OrderedDict = OrderedDict()
         self.evictions = 0
 
     def get(self, key):
         with self._lock:
+            seam.read(self, "_entries")
             idx = self._entries.get(key)
             if idx is not None:
+                seam.write(self, "_entries")
                 self._entries.move_to_end(key)
             return idx
 
     def put(self, key, idx) -> int:
         evicted_here = 0
         with self._lock:
+            seam.write(self, "_entries")
             self._entries.pop(key, None)
             self._entries[key] = idx
             while len(self._entries) > self.max_entries:
                 self._entries.popitem(last=False)
+                seam.write(self, "evictions")
                 self.evictions += 1
                 evicted_here += 1
         return evicted_here
@@ -228,7 +240,8 @@ class CudaReader:
                             if index_entries > 0 else None)
         self.metrics = metrics
         self._index_builds: dict = {}        # key -> in-flight Event
-        self._index_builds_lock = threading.Lock()
+        self._index_builds_lock = seam.make_lock(
+            "CudaReader._index_builds_lock")
         # file identity -> (width, height): lets region keys be
         # clamp-normalized before the tile-cache lookup
         self._dims = _IndexCache(DIMS_CACHE_ENTRIES)
@@ -251,9 +264,12 @@ class CudaReader:
             self._count("decode.index_cache_hits")
             return idx
         with self._index_builds_lock:
+            seam.read(self, "_index_builds")
             pending = self._index_builds.get(ikey)
             if pending is None:
-                pending = self._index_builds[ikey] = threading.Event()
+                seam.write(self, "_index_builds")
+                pending = self._index_builds[ikey] = seam.make_event(
+                    "CudaReader.index_build")
                 builder = True
             else:
                 builder = False
@@ -289,6 +305,7 @@ class CudaReader:
         finally:
             if builder:
                 with self._index_builds_lock:
+                    seam.write(self, "_index_builds")
                     self._index_builds.pop(ikey, None)
                 pending.set()
 

@@ -97,6 +97,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..analysis.graftrace import seam
 from ..codec.frontend import MODES
 from . import faults
 
@@ -156,14 +157,15 @@ class _Ticket:
     seq: int
     deadline: float | None            # absolute time.monotonic()
     kind: str = "encode"              # metric namespace
-    granted: threading.Event = field(default_factory=threading.Event)
+    granted: threading.Event = field(
+        default_factory=lambda: seam.make_event("Ticket.granted"))
     abandoned: bool = False           # expired while waiting
     closed: bool = False
     cancelled: bool = False           # close() cancelled it while queued
 
     def expired(self) -> bool:
         return (self.deadline is not None
-                and time.monotonic() > self.deadline)
+                and seam.monotonic() > self.deadline)
 
 
 @dataclass
@@ -178,7 +180,8 @@ class _DeviceJob:
     ctx: object = None
     priority: int = PRIORITY_SINGLE
     seq: int = 0
-    event: threading.Event = field(default_factory=threading.Event)
+    event: threading.Event = field(
+        default_factory=lambda: seam.make_event("DeviceJob.event"))
     result: object = None
     error: BaseException | None = None
 
@@ -224,7 +227,8 @@ class _TensorJob:
     ctx: object = None
     priority: int = PRIORITY_TENSOR
     seq: int = 0
-    event: threading.Event = field(default_factory=threading.Event)
+    event: threading.Event = field(
+        default_factory=lambda: seam.make_event("TensorJob.event"))
     result: object = None
     error: BaseException | None = None
 
@@ -256,7 +260,8 @@ class _DequantJob:
     ctx: object = None
     priority: int = PRIORITY_BATCHREAD
     seq: int = 0
-    event: threading.Event = field(default_factory=threading.Event)
+    event: threading.Event = field(
+        default_factory=lambda: seam.make_event("DequantJob.event"))
     result: object = None
     error: BaseException | None = None
 
@@ -282,7 +287,8 @@ class _T1Job:
     ctx: object = None
     priority: int = PRIORITY_SINGLE
     seq: int = 0
-    event: threading.Event = field(default_factory=threading.Event)
+    event: threading.Event = field(
+        default_factory=lambda: seam.make_event("T1Job.event"))
     result: object = None
     error: BaseException | None = None
 
@@ -372,7 +378,7 @@ class EncodeScheduler:
 
         self._pool = ThreadPoolExecutor(max_workers=max(1, self.pool_size),
                                         thread_name_prefix="sched-t1")
-        self._lock = threading.Lock()
+        self._lock = seam.make_lock("EncodeScheduler._lock")
         self._seq = itertools.count()
         self._waiting: list = []      # heap of (priority, seq, ticket)
         self._running = 0
@@ -381,7 +387,7 @@ class EncodeScheduler:
         self._sink = None
 
         # -- device pool state (guarded by _dq_cv) --------------------
-        self._dq_cv = threading.Condition()
+        self._dq_cv = seam.make_condition("EncodeScheduler._dq_cv")
         self._djobs: list = []        # the one merged priority queue
         self._dseq = itertools.count()
         self._devices: list | None = None   # resolved lazily
@@ -423,7 +429,7 @@ class EncodeScheduler:
         Metrics reporter: report() calls reporters outside its own
         lock."""
         with self._dq_cv:
-            now = time.monotonic()
+            now = seam.monotonic()
             out = {
                 "devices": (len(self._devices)
                             if self._devices is not None else 0),
@@ -493,31 +499,38 @@ class EncodeScheduler:
     def _admit(self, priority: int, deadline_s: float | None,
                kind: str = "encode") -> _Ticket:
         with self._lock:
+            seam.read(self, "_closed")
             if self._closed:
                 raise SchedulerClosed(
                     f"{kind} rejected: scheduler is closed")
+            seam.read(self, "_admitted")
             if self._admitted >= self.queue_depth:
                 self._count(f"{kind}.admission_rejects")
                 raise QueueFull(self.queue_depth, self.retry_after_s,
                                 kind)
+            seam.write(self, "_admitted")
             self._admitted += 1
             if deadline_s is None:
                 deadline_s = self.default_deadline_s
-            deadline = (time.monotonic() + deadline_s
+            deadline = (seam.monotonic() + deadline_s
                         if deadline_s else None)
             t = _Ticket(priority, next(self._seq), deadline, kind)
             if self._running < self.max_concurrent and not self._waiting:
+                seam.write(self, "_running")
                 self._running += 1
                 t.granted.set()
             else:
+                seam.write(self, "_waiting")
                 heapq.heappush(self._waiting, (priority, t.seq, t))
             return t
 
     def _grant_next_locked(self) -> None:
         while self._waiting and self._running < self.max_concurrent:
+            seam.write(self, "_waiting")
             _, _, t = heapq.heappop(self._waiting)
             if t.abandoned or t.closed or t.cancelled:
                 continue
+            seam.write(self, "_running")
             self._running += 1
             t.granted.set()
 
@@ -526,7 +539,7 @@ class EncodeScheduler:
         while not t.granted.is_set():
             timeout = None
             if t.deadline is not None:
-                timeout = t.deadline - time.monotonic()
+                timeout = t.deadline - seam.monotonic()
                 if timeout <= 0:
                     with self._lock:
                         t.abandoned = True
@@ -534,6 +547,7 @@ class EncodeScheduler:
                     raise DeadlineExceeded(
                         f"{t.kind} deadline expired while queued")
             t.granted.wait(timeout)
+        seam.read(t, "cancelled")
         if t.cancelled:
             # close() woke us to fail typed, not to run.
             raise SchedulerClosed(
@@ -548,10 +562,12 @@ class EncodeScheduler:
             if t.closed:
                 return
             t.closed = True
+            seam.write(self, "_admitted")
             self._admitted -= 1
             # A cancelled ticket was granted only to deliver the typed
             # close error — it never occupied a running slot.
             if t.granted.is_set() and not t.cancelled:
+                seam.write(self, "_running")
                 self._running -= 1
                 self._grant_next_locked()
 
@@ -738,23 +754,29 @@ class EncodeScheduler:
     def _ensure_devices_locked(self) -> None:
         if self._devices is not None:
             return
+        seam.write(self, "_devices")
         self._devices = self._resolve_devices_locked()
         n = len(self._devices)
+        seam.write(self, "_workers")
         self._workers = [None] * n
+        seam.write(self, "_busy_s")
         self._busy_s = [0.0] * n
+        seam.write(self, "_busy_since")
         self._busy_since = [None] * n
+        seam.write(self, "_inflight")
         self._inflight = [0] * n
         # True from pop to launch completion: a worker inside its
         # aggregation window owns a job without being "busy" yet, and
         # must not read as idle to scale-up / idle-peer heuristics.
+        seam.write(self, "_holding")
         self._holding = [False] * n
-        self._pool_t0 = time.monotonic()
+        self._pool_t0 = seam.monotonic()
 
     def _spawn_worker_locked(self, widx: int) -> None:
-        t = threading.Thread(target=self._worker_loop, args=(widx,),
-                             name=f"sched-device-{widx}", daemon=True)
-        self._workers[widx] = t
-        t.start()
+        seam.write(self, "_workers")
+        self._workers[widx] = seam.start_thread(
+            self._worker_loop, name=f"sched-device-{widx}",
+            args=(widx,))
 
     def _ensure_workers(self) -> None:
         """Bring the pool up lazily: resolve the device list on first
@@ -763,9 +785,11 @@ class EncodeScheduler:
         permanent: a dispatch racing it gets the typed error, never a
         resurrected half-alive pool."""
         with self._dq_cv:
+            seam.read(self, "_stop")
             if self._stop:
                 raise SchedulerClosed("scheduler is closed")
             self._ensure_devices_locked()
+            seam.read(self, "_workers")
             if not any(t is not None and t.is_alive()
                        for t in self._workers):
                 self._spawn_worker_locked(0)
@@ -776,6 +800,7 @@ class EncodeScheduler:
         restart path for a fatally-dead worker slot — no job is ever
         stranded on a dead worker)."""
         idle = 0
+        seam.read(self, "_holding")
         for i, t in enumerate(self._workers):
             if t is not None and t.is_alive() \
                     and self._busy_since[i] is None \
@@ -789,8 +814,11 @@ class EncodeScheduler:
                 return
 
     def device_threads_alive(self) -> bool:
-        """True while any pool worker thread is alive."""
+        """True while any pool worker thread is alive (tests and the
+        graftrace shutdown scenarios assert close() really stopped the
+        pool)."""
         with self._dq_cv:
+            seam.read(self, "_workers")
             return any(t is not None and t.is_alive()
                        for t in self._workers)
 
@@ -803,6 +831,7 @@ class EncodeScheduler:
         if self.launch_fn is not None:
             return None, -1
         with self._dq_cv:
+            seam.read(self, "_stop")
             if self._stop:
                 return None, -1
             self._ensure_devices_locked()
@@ -811,6 +840,7 @@ class EncodeScheduler:
                 return None, -1
             best = min(range(len(devs)),
                        key=lambda i: (self._inflight[i], i))
+            seam.write(self, "_inflight")
             self._inflight[best] += 1
         self._count(f"{kind}.device_assigned.d{best}")
         return devs[best], best
@@ -830,6 +860,7 @@ class EncodeScheduler:
                 yield
         finally:
             with self._dq_cv:
+                seam.write(self, "_inflight")
                 self._inflight[idx] -= 1
 
     def _enqueue(self, job):
@@ -839,18 +870,22 @@ class EncodeScheduler:
         run."""
         self._ensure_workers()
         with self._dq_cv:
+            seam.read(self, "_stop")
             if self._stop:
                 raise SchedulerClosed("scheduler is closed")
             job.seq = next(self._dseq)
+            seam.write(self, "_djobs")
             self._djobs.append(job)
             self._scale_up_locked()
             self._dq_cv.notify_all()
         job.event.wait()
+        seam.read(job, "error")
         if job.error is not None:
             raise job.error
+        seam.read(job, "result")
         return job.result
 
-    def dispatch_frontend(self, plan, tiles, mode: str = "mq", *,
+    def dispatch_frontend(self, plan, tiles, mode: str = "rows", *,
                           _priority: int = PRIORITY_SINGLE):
         """The encoder's device-dispatch hook: queue a front-end launch
         and block until a pool worker has dispatched it (the launch
@@ -920,6 +955,7 @@ class EncodeScheduler:
                      priority=_priority)
         with self._dq_cv:
             while True:
+                seam.read(self, "_stop")
                 if self._stop:
                     raise SchedulerClosed(
                         "scheduler closed while staging a Tier-1 chunk")
@@ -929,11 +965,14 @@ class EncodeScheduler:
                     break
                 self._dq_cv.wait(0.05)
             job.seq = next(self._dseq)
+            seam.write(self, "_djobs")
             self._djobs.append(job)
             self._dq_cv.notify_all()
         job.event.wait()
+        seam.read(job, "error")
         if job.error is not None:
             raise job.error
+        seam.read(job, "result")
         return job.result
 
     def _engage_split_locked(self) -> None:
@@ -945,6 +984,7 @@ class EncodeScheduler:
         if self._split is not None:
             return
         n = len(self._devices)
+        seam.write(self, "_split")
         self._split = self._plan_split(n)
         LOG.info("pipeline split engaged: %d front-end / %d tier-1 "
                  "workers over %d devices", self._split,
@@ -1011,6 +1051,7 @@ class EncodeScheduler:
                 best = i
         if best < 0:
             return None
+        seam.write(self, "_djobs")
         return self._djobs.pop(best)
 
     def _idle_peer_locked(self, widx: int, stage: str) -> bool:
@@ -1018,6 +1059,7 @@ class EncodeScheduler:
         holding the aggregation window then is futile (the peer would
         pop arrivals immediately) and harmful (a free device should
         parallelize, not wait to merge)."""
+        seam.read(self, "_holding")
         for i, t in enumerate(self._workers):
             if i == widx or t is None or not t.is_alive():
                 continue
@@ -1051,22 +1093,19 @@ class EncodeScheduler:
                 total += j.size
             else:
                 kept.append(j)
+        seam.write(self, "_djobs")
         self._djobs = kept
         return total
-
-    def _running_count(self) -> int:
-        """Granted-slot snapshot for the workers' merge heuristics
-        (_dq_cv -> _lock nests nowhere in the reverse order)."""
-        with self._lock:
-            return self._running
 
     def _drain_queued_locked(self) -> None:
         """Fail every still-queued device job typed at shutdown — no
         waiter hangs."""
         for j in self._djobs:
+            seam.write(j, "error")
             j.error = SchedulerClosed(
                 "scheduler closed before this chunk's device launch")
             j.event.set()
+        seam.write(self, "_djobs")
         self._djobs = []
 
     def _gather_locked(self, widx: int, job) -> list:
@@ -1083,7 +1122,7 @@ class EncodeScheduler:
             # No window (or an idle peer): merge only what is queued.
             self._take_compatible_locked(group)
             return group
-        limit = time.monotonic() + self.window_s
+        limit = seam.monotonic() + self.window_s
         while True:
             total = self._take_compatible_locked(group)
             if job.stage == "dequant":
@@ -1095,7 +1134,16 @@ class EncodeScheduler:
                 if len(group) >= target or total >= cap:
                     break
             else:
-                running = self._running_count()
+                # Granted-slot snapshot for the merge heuristics. Every
+                # _running write holds _lock, so the read takes it too
+                # (a bare read under _dq_cv alone is the race graftrace
+                # found in the JAX package). _dq_cv -> _lock nests
+                # nowhere in the reverse order, and the nesting sits in
+                # this method's own body so that the lock-order rule's
+                # one call hop from _worker_loop sees it.
+                with self._lock:
+                    seam.read(self, "_running")
+                    running = self._running
                 if len(group) >= max(1, running) or total >= cap:
                     break
                 # Futile-wait cut: if every other running request
@@ -1105,10 +1153,11 @@ class EncodeScheduler:
                 if self._djobs and len(self._djobs) >= \
                         running - len(group):
                     break
-            remaining = limit - time.monotonic()
+            remaining = limit - seam.monotonic()
             if remaining <= 0:
                 break
             self._dq_cv.wait(remaining)
+            seam.read(self, "_stop")
             if self._stop:
                 break
         return group
@@ -1117,6 +1166,7 @@ class EncodeScheduler:
         while True:
             with self._dq_cv:
                 while True:
+                    seam.read(self, "_stop")
                     if self._stop:
                         self._drain_queued_locked()
                         return
@@ -1124,12 +1174,14 @@ class EncodeScheduler:
                     if job is not None:
                         break
                     self._dq_cv.wait()
+                seam.write(self, "_holding")
                 self._holding[widx] = True
                 # A pop frees staging-queue room: wake bounded
                 # dispatch_t1 stagers (and idle peers re-check).
                 self._dq_cv.notify_all()
                 group = self._gather_locked(widx, job)
-                self._busy_since[widx] = time.monotonic()
+                seam.write(self, "_busy_since")
+                self._busy_since[widx] = seam.monotonic()
             fatal = False
             try:
                 with _pinned(self._devices[widx]):
@@ -1151,13 +1203,17 @@ class EncodeScheduler:
                               "group", widx, len(group))
                 for j in group:
                     if not j.event.is_set():
+                        seam.write(j, "error")
                         j.error = RuntimeError("device launch failed")
                         j.event.set()
             finally:
                 with self._dq_cv:
+                    seam.write(self, "_busy_s")
                     self._busy_s[widx] += \
-                        time.monotonic() - self._busy_since[widx]
+                        seam.monotonic() - self._busy_since[widx]
+                    seam.write(self, "_busy_since")
                     self._busy_since[widx] = None
+                    seam.write(self, "_holding")
                     self._holding[widx] = False
                     if fatal and not self._stop:
                         # A fatally-interrupted worker replaces itself
@@ -1177,8 +1233,9 @@ class EncodeScheduler:
         try:
             run()
             completed = True
-        except Exception as exc:
+        except Exception as exc:    # graftlint: disable=swallowed-exception
             for j in group:
+                seam.write(j, "error")
                 j.error = exc
         finally:
             if self._sink is not None:
@@ -1188,6 +1245,7 @@ class EncodeScheduler:
                 # reached neither the results nor the except clause: the
                 # waiter must see a typed error, never a silent None.
                 if not completed and j.error is None:
+                    seam.write(j, "error")
                     j.error = RuntimeError("device launch failed")
                 j.event.set()
 
@@ -1212,13 +1270,15 @@ class EncodeScheduler:
             with obs.span("device.launch", ctx=None,
                           links=[j.ctx for j in group if j.ctx], **attrs):
                 if len(group) == 1:
-                    lead.result = launch(lead.plan, lead.tiles,
-                                         mode=lead.mode)
+                    result = launch(lead.plan, lead.tiles, mode=lead.mode)
+                    seam.write(lead, "result")
+                    lead.result = result
                 else:
                     tiles = np.concatenate([j.tiles for j in group])
                     merged = launch(lead.plan, tiles, mode="rows")
                     off = 0
                     for j in group:
+                        seam.write(j, "result")
                         j.result = _SlicedPending(merged, off, j.n_tiles)
                         off += j.n_tiles
             self._add_stage_s("frontend", time.perf_counter() - t0)
@@ -1259,6 +1319,7 @@ class EncodeScheduler:
                     res = self.launch_fn(None, rows, mode="tensor")
                     off = 0
                     for j in group:
+                        seam.write(j, "result")
                         j.result = (res, off, j.n_blocks)
                         off += j.n_blocks
                     return
@@ -1268,6 +1329,7 @@ class EncodeScheduler:
                 off = 0
                 for j in group:
                     share = j.n_blocks / max(1, n_blocks)
+                    seam.write(j, "result")
                     j.result = (blocks[off:off + j.n_blocks],
                                 int(round(syms * share)), dev_s * share)
                     off += j.n_blocks
@@ -1297,10 +1359,12 @@ class EncodeScheduler:
                     res = self.launch_fn(
                         None, [j.arrays for j in group], mode="dequant")
                     for j in group:
+                        seam.write(j, "result")
                         j.result = (res, len(group))
                     return
                 from ..tensor import coeffs as tcoeffs
                 if len(group) == 1:
+                    seam.write(lead, "result")
                     lead.result = tcoeffs.run_dequant_inline(
                         lead.reversible, lead.deltas, lead.arrays,
                         device=dev)
@@ -1311,6 +1375,7 @@ class EncodeScheduler:
                     lead.reversible, lead.deltas, stacked, device=dev)
                 # Lazy per-image views of the shared batched output.
                 for g, j in enumerate(group):
+                    seam.write(j, "result")
                     j.result = tuple(tcoeffs.BandSlice(o, g)
                                      for o in outs)
 
@@ -1336,6 +1401,7 @@ class EncodeScheduler:
                 payload = job.payload
                 if dev is not None and isinstance(payload, torch.Tensor):
                     payload = payload.to(dev)
+                seam.write(job, "result")
                 job.result = job.fn(payload)
             self._add_stage_s("t1", time.perf_counter() - t0)
 
@@ -1353,15 +1419,20 @@ class EncodeScheduler:
         device groups finish, drain still-queued device jobs typed,
         then stop every pool worker and the host pool."""
         with self._lock:
+            seam.write(self, "_closed")
             self._closed = True
+            seam.write(self, "_waiting")
             while self._waiting:
                 _, _, t = heapq.heappop(self._waiting)
                 if not t.closed and not t.granted.is_set():
+                    seam.write(t, "cancelled")
                     t.cancelled = True
                     t.granted.set()
         with self._dq_cv:
+            seam.write(self, "_stop")
             self._stop = True
             self._dq_cv.notify_all()
+            seam.read(self, "_workers")
             workers = list(self._workers)
         for t in workers:
             if t is not None:
@@ -1372,6 +1443,7 @@ class EncodeScheduler:
         with self._dq_cv:
             self._drain_queued_locked()
         with self._lock:
+            seam.read(self, "_admitted")
             busy = self._admitted > 0
         if not busy:
             self._pool.shutdown(wait=True)
@@ -1382,6 +1454,8 @@ class EncodeScheduler:
 
     def stats(self) -> dict:
         with self._lock:
+            seam.read(self, "_running")
+            seam.read(self, "_admitted")
             out = {"running": self._running,
                    "waiting": len(self._waiting),
                    "admitted": self._admitted,
@@ -1417,3 +1491,8 @@ def get_scheduler(device="cuda") -> EncodeScheduler:
         if sched is None:
             sched = _GLOBAL[kind] = EncodeScheduler(device=kind)
         return sched
+
+
+# The class predates decode routing; the neutral name is the current
+# one, the encode-flavored name stays for existing callers.
+Scheduler = EncodeScheduler

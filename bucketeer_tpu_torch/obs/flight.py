@@ -11,10 +11,9 @@ window absorbed.
 from __future__ import annotations
 
 import itertools
-import threading
-import time
 from collections import deque
 
+from ..analysis.graftrace import seam
 
 
 class FlightRecorder:
@@ -23,7 +22,7 @@ class FlightRecorder:
         self.recorder = recorder
         self.max_dumps = max_dumps
         self.min_interval_s = min_interval_s
-        self._lock = threading.Lock()
+        self._lock = seam.make_lock("obs.FlightRecorder._lock")
         self._dumps: deque = deque(maxlen=max_dumps)
         self._seq = itertools.count(1)
         self._last = None
@@ -32,13 +31,16 @@ class FlightRecorder:
     def dump(self, reason: str, request_id=None, force: bool = False):
         """Freeze the current rings under ``reason``. Returns the dump
         entry, or None when the rate limit absorbed the trigger."""
-        now = time.monotonic()
+        now = seam.monotonic()
         with self._lock:
+            seam.read(self, "_last")
             if (not force and self._last is not None
                     and now - self._last < self.min_interval_s):
+                seam.write(self, "suppressed")
                 self.suppressed += 1
                 suppressed = True
             else:
+                seam.write(self, "_last")
                 self._last = now
                 suppressed = False
                 seq = next(self._seq)
@@ -58,12 +60,14 @@ class FlightRecorder:
             "spans": spans,
         }
         with self._lock:
+            seam.write(self, "_dumps")
             self._dumps.append(entry)
         self.recorder._count("obs.flight_dumps")
         return entry
 
     def get(self, seq: int):
         with self._lock:
+            seam.read(self, "_dumps")
             for entry in self._dumps:
                 if entry["seq"] == seq:
                     return entry
@@ -73,9 +77,11 @@ class FlightRecorder:
         """The ``GET /debug/flight`` body: recent live spans plus dump
         summaries (full dumps are fetched by ``?dump=<seq>``)."""
         with self._lock:
+            seam.read(self, "_dumps")
             dumps = [{k: e[k] for k in
                       ("seq", "at", "reason", "request_id", "n_spans")}
                      for e in self._dumps]
+            seam.read(self, "suppressed")
             suppressed = self.suppressed
         return {
             "enabled": True,

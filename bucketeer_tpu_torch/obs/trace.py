@@ -1,5 +1,5 @@
 """Request-scoped span tracing for the serving path: a copy of the JAX
-package's bucketeer_tpu/obs/trace.py on plain ``threading``.
+package's bucketeer_tpu/obs/trace.py.
 
 One :class:`Recorder` per process (installed by the server at boot,
 gated by ``BUCKETEER_TRACE``) collects :class:`Span` records into
@@ -15,9 +15,12 @@ bounded *per-thread* ring buffers. The design constraints, in order:
   Threads are the unit because span *completion* is single-writer per
   thread — the ring lock is only ever contended by a flight dump or
   trace export reading it.
-- **Plain threading.** Locks are ``threading.Lock`` and timestamps
-  ``time.monotonic()`` (the JAX package's copy routes both through its
-  race explorer's seam; this one has none).
+- **Explorable under graftrace.** Every lock comes from the seam
+  (:mod:`..analysis.graftrace.seam`), timestamps come from
+  ``seam.monotonic()`` (the virtual clock under the explorer), and
+  shared-field accesses carry seam annotations — the
+  ``span_ring_concurrency`` scenario races span begin/end against
+  flight dumps (``python -m bucketeer_tpu_torch.analysis --race``).
 
 Context propagation rules:
 
@@ -39,8 +42,8 @@ import contextvars
 import itertools
 import os
 import threading
-import time
 
+from ..analysis.graftrace import seam
 
 DEFAULT_RING_SPANS = 4096
 
@@ -153,7 +156,7 @@ class _SpanHandle:
 
     def __exit__(self, etype, exc, tb):
         s = self._span
-        s.dur = time.monotonic() - s.t0
+        s.dur = seam.monotonic() - s.t0
         if etype is not None:
             s.status = "error"
             # attrs may be shared by the caller; copy before annotating.
@@ -174,7 +177,7 @@ class _Ring:
     def __init__(self, thread: str, cap: int):
         self.cap = max(8, int(cap))
         self.thread = thread
-        self._lock = threading.Lock()
+        self._lock = seam.make_lock("obs._Ring._lock")
         self._buf: list = []
         self._pos = 0
         self.dropped = 0        # spans overwritten before anyone read them
@@ -182,16 +185,21 @@ class _Ring:
 
     def append(self, span: Span) -> None:
         with self._lock:
+            seam.write(self, "_buf")
             if len(self._buf) < self.cap:
                 self._buf.append(span)
             else:
                 self._buf[self._pos] = span
+                seam.write(self, "dropped")
                 self.dropped += 1
+            seam.write(self, "_pos")
             self._pos = (self._pos + 1) % self.cap
+            seam.write(self, "total")
             self.total += 1
 
     def snapshot(self) -> list:
         with self._lock:
+            seam.read(self, "_buf")
             if len(self._buf) < self.cap:
                 return list(self._buf)
             return self._buf[self._pos:] + self._buf[:self._pos]
@@ -215,7 +223,7 @@ class Recorder:
             except ValueError:
                 ring_spans = DEFAULT_RING_SPANS
         self.ring_spans = ring_spans
-        self._lock = threading.Lock()
+        self._lock = seam.make_lock("obs.Recorder._lock")
         self._rings: list = []
         self._tls = threading.local()
         # itertools.count.__next__ is a single C call — effectively
@@ -242,7 +250,7 @@ class Recorder:
         if ctx is not None:
             trace_id, parent_id = ctx
         s = Span(trace_id, next(self._ids), parent_id, name,
-                 time.monotonic(), threading.current_thread().name,
+                 seam.monotonic(), threading.current_thread().name,
                  attrs, tuple(links))
         token = _CTX.set((trace_id, s.span_id))
         return _SpanHandle(self, s, token)
@@ -257,6 +265,7 @@ class Recorder:
                          self.ring_spans)
             self._tls.ring = ring
             with self._lock:
+                seam.write(self, "_rings")
                 self._rings.append(ring)
         return ring
 
@@ -264,6 +273,7 @@ class Recorder:
 
     def _all_rings(self) -> list:
         with self._lock:
+            seam.read(self, "_rings")
             return list(self._rings)
 
     def snapshot(self, limit: int | None = None) -> list:

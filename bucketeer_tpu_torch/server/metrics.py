@@ -1,5 +1,5 @@
 """Per-stage timing metrics: a copy of the JAX package's
-bucketeer_tpu/server/metrics.py ``Metrics`` sink on plain ``threading``.
+bucketeer_tpu/server/metrics.py ``Metrics`` sink.
 
 New relative to the reference, which has no metrics endpoint; the sink
 reports MPixels/s per stage because throughput is the product
@@ -16,6 +16,7 @@ from collections import defaultdict
 from dataclasses import dataclass, field
 
 from .. import obs
+from ..analysis.graftrace import seam
 
 LOG = logging.getLogger(__name__)
 
@@ -183,9 +184,10 @@ class Metrics:
     # BatchConverterWorker's asyncio.to_thread converts, instances=2),
     # and += on the stat fields is a read-modify-write — serialize every
     # update or rare-event counters silently lose increments. The
-    # single _lock covers stages, overlaps, counters and values.
+    # single _lock covers stages, overlaps, counters and values; the
+    # graftrace seam lets the race explorer serialize + check them.
     _lock: threading.Lock = field(
-        default_factory=lambda: threading.Lock(),
+        default_factory=lambda: seam.make_lock("Metrics._lock"),
         repr=False)
     # Live-state reporters: name -> zero-arg callable returning a JSON
     # section merged into report() (e.g. the engine's circuit-breaker
@@ -209,6 +211,7 @@ class Metrics:
     def record(self, stage: str, seconds: float, pixels: int = 0,
                items: int = 0) -> None:
         with self._lock:
+            seam.write(self, "stages")
             self.stages[stage].record(seconds, pixels, items)
 
     def record_overlap(self, stage: str, device_s: float, host_s: float,
@@ -216,28 +219,37 @@ class Metrics:
         """Record one pipelined run's device-dispatch vs host-coding
         segments (codec/encoder.py overlapped pipeline)."""
         with self._lock:
+            seam.write(self, "overlaps")
             self.overlaps[stage].record(device_s, host_s, wall_s, pixels)
 
     def count(self, name: str, n: int = 1) -> None:
         """Bump an event counter (PCRD floor re-runs, Tier-2 rebuild
         iterations, mesh routings, admission rejects, ...)."""
         with self._lock:
+            seam.write(self, "counters")
             self.counters[name] += n
 
     def observe(self, name: str, value: float) -> None:
         """Record one sample of a value distribution (e.g. the encode
         scheduler's per-launch batch occupancy)."""
         with self._lock:
+            seam.write(self, "values")
             self.values[name].observe(float(value))
 
     def add_reporter(self, name: str, fn) -> None:
         """Attach (or replace) a live-state section of the report."""
         with self._lock:
+            seam.write(self, "_reporters")
             self._reporters[name] = fn
 
     def report(self) -> dict:
         with self._lock:
+            seam.read(self, "stages")
+            seam.read(self, "overlaps")
+            seam.read(self, "counters")
+            seam.read(self, "values")
             out = self._report_locked()
+            seam.read(self, "_reporters")
             reporters = dict(self._reporters)
         for name, fn in sorted(reporters.items()):
             try:
@@ -310,6 +322,10 @@ class Metrics:
         only buckets whose cumulative count changed, plus ``+Inf``),
         overlap segments as gauges."""
         with self._lock:
+            seam.read(self, "stages")
+            seam.read(self, "counters")
+            seam.read(self, "values")
+            seam.read(self, "overlaps")
             uptime = time.time() - self.started_at
             counters = dict(self.counters)
             stages = {name: (list(st.hist.counts), st.hist.sum,

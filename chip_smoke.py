@@ -154,12 +154,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    fused_t1 (timed by CUDA events beside its bound) and round-trips
    through decode_batch exactly, and truncate_batch equals a floored
    encode_batch after decode;
-12. one JSON line with every kernel, then the card line and the result
+12. the defaults and the analysis, the launch counts set to 0 before
+   each encode and read after: (a) encode_jp2 of a 512x512 corner of
+   phase 5's image (Kakadu recipe, lossless) with default parameters on
+   the card launches fused_t1 and gives the bytes of device_mq=True; on
+   the CPU the defaults take the host Tier-1 (no kernel wrapper called)
+   and give the same lossless bytes; (b) two requests through one
+   EncodeScheduler(device="cuda") call dispatch_frontend with its
+   default mode, and their tiles go to the card in one merged launch
+   whose windows equal solo launches; (c) python -m
+   bucketeer_tpu_torch.analysis --strict --race (8 interleavings per
+   default scenario) in a process of its own: lint clean, and no race,
+   lock cycle, deadlock, broken invariant or divergence;
+13. one JSON line with every kernel, then the card line and the result
    line.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import multiprocessing
 import os
@@ -665,7 +678,7 @@ def first_chunk_groups(img: np.ndarray):
     batch = np.stack([img[0:t, x:x + t] for x in
                       range(0, min(img.shape[1], encoder.CHUNK_TILES * t),
                             t)])
-    fres = frontend.dispatch_frontend(plan, batch,
+    fres = frontend.dispatch_frontend(plan, batch, mode="mq",
                                       device="cuda").resolve_stats()
     layout = frontend.layout_for(plan)
     names = [plan.slots[m.slot_i].name for m in layout.metas] * len(batch)
@@ -994,7 +1007,9 @@ def phase_parity(rng) -> None:
         t0 = time.perf_counter()
         split = encode_jp2(img, 8, params, jpx=True, device="cuda")
         t_split = time.perf_counter() - t0
-        params.device_mq = params.device_cxd = None
+        # The fused Tier-1's plain versions on the CPU (its default there
+        # is the host Tier-1; phase 12 holds that to the card's bytes).
+        params.device_mq, params.device_cxd = True, None
         t0 = time.perf_counter()
         on_cpu = encode_jp2(img, 8, params, jpx=True, device="cpu")
         t_cpu = time.perf_counter() - t0
@@ -3167,6 +3182,186 @@ def phase_mesh(img, main_res: dict, ref: dict, workdir: str,
     return {"counts": counts}
 
 
+# --- phase 12: the defaults and the analysis ---------------------------
+
+PLACEMENT_SIDE = 512        # (a): a corner of phase 5's image, one tile
+MERGE_TILE = 256            # (b): two tiles of phase 5's image
+MERGE_WINDOW_S = 2.0        # (b): the scheduler's merge window
+RACE_SCHEDULES = 8          # (c): interleavings per race scenario
+
+
+def _placement_encode(label: str, crop, params, device: str) -> dict:
+    """One encode_jp2 with the launch counts set to 0 just before and
+    read just after, and the calls the encoder made to the two Tier-1
+    kernels' wrappers counted (on the CPU a wrapper runs its plain
+    version, which counts no launch)."""
+    from bucketeer_tpu_torch.codec import cxd, encoder
+
+    calls = {"fused_t1": 0, "cxd_scan": 0}
+    real = {name: getattr(cxd, name) for name in calls}
+
+    def counted(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return call
+
+    mode = encoder._tier1_mode(params, device)
+    for name in calls:
+        setattr(cxd, name, counted(name))
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        data = encoder.encode_jp2(crop, 8, params, jpx=True, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in real.items():
+            setattr(cxd, name, fn)
+    counts = read_counts()
+    say(f"placement {label}: device_mq={params.device_mq}, device "
+        f"{device}: Tier-1 mode {mode!r}, {len(data)} B in {wall:.3f} s; "
+        f"kernel launches {counts}, wrapper calls {calls}")
+    return {"data": data, "counts": counts, "calls": calls, "mode": mode}
+
+
+def phase_defaults(img) -> dict:
+    """(a) the default Tier-1 placement: encode_jp2 of a 512x512 corner
+    of phase 5's image (Kakadu recipe, lossless) with default parameters
+    on the card runs the fused kernel and gives the bytes of
+    device_mq=True; on the CPU the defaults take the host Tier-1 (no
+    kernel wrapper is called, no kernel launches) and give the same
+    lossless bytes. (b) the default front-end mode: two requests through
+    one EncodeScheduler(device="cuda") call dispatch_frontend without a
+    mode, each holding its slot before either dispatches, and their
+    tiles go to the card in one merged launch whose windows equal solo
+    launches. (c) the port's lint (--strict) and race explorer over its
+    serving core (--race at RACE_SCHEDULES interleavings per default
+    scenario), in a process of their own: both clean."""
+    from bucketeer_tpu_torch.codec import encoder, frontend
+    from bucketeer_tpu_torch.codec.pipeline import make_plan
+    from bucketeer_tpu_torch.engine.scheduler import (EncodeScheduler,
+                                                      _SlicedPending)
+    from bucketeer_tpu_torch.server.metrics import Metrics
+
+    # (a)
+    side = PLACEMENT_SIDE
+    crop = np.ascontiguousarray(img[:side, :side])
+    params = encoder.EncodeParams.kakadu_recipe(lossless=True)
+    params.tile_size = None
+    runs = {label: _placement_encode(
+        label, crop, dataclasses.replace(params, device_mq=mq), device)
+        for label, device, mq in (("card default", "cuda", None),
+                                  ("card device_mq=True", "cuda", True),
+                                  ("cpu default", "cpu", None))}
+    card, forced, cpu = (runs["card default"], runs["card device_mq=True"],
+                         runs["cpu default"])
+    if card["mode"] != "mq" or card["counts"]["fused_t1"] <= 0 \
+            or card["calls"]["fused_t1"] <= 0:
+        fail("placement: the card's default encode did not launch fused_t1")
+    if card["data"] != forced["data"]:
+        fail("placement: the card's default bytes differ from "
+             "device_mq=True's")
+    if cpu["mode"] != "rows" or any(cpu["counts"].values()) \
+            or any(cpu["calls"].values()):
+        fail("placement: the CPU's default encode ran a Tier-1 kernel")
+    if cpu["data"] != card["data"]:
+        fail("placement: the CPU's default lossless bytes differ from the "
+             "card's")
+    say(f"placement: card default == device_mq=True == cpu default "
+        f"(host Tier-1), {len(card['data'])} B")
+    launched = {name: card["counts"][name] + forced["counts"][name]
+                for name in card["counts"]}
+
+    # (b)
+    t = MERGE_TILE
+    plan = make_plan(t, t, 3, 5, True, 8, params.base_delta, use_mct=True)
+    tiles = [np.ascontiguousarray(img[0:t, i * t:(i + 1) * t])[None]
+             for i in range(2)]
+    sink = Metrics()
+    sched = EncodeScheduler(device="cuda", window_s=MERGE_WINDOW_S,
+                            max_concurrent=4)
+    sched.set_metrics_sink(sink)
+    both_admitted = threading.Barrier(2)
+
+    def request(i):
+        def body():
+            both_admitted.wait(timeout=60)
+            return sched.dispatch_frontend(plan, tiles[i])
+        return sched.submit(body)
+
+    try:
+        outs, wall = _run_threads([lambda i=i: request(i) for i in (0, 1)],
+                                  "default-mode pair")
+        merged = [o.resolve_stats() for o in outs]
+    finally:
+        sched.close()
+    rep = sink.report()
+    n_launches = rep["counters"].get("encode.device_launches", 0)
+    occupancy = rep["values"]["encode.batch_occupancy"]["max"]
+    solo = [frontend.dispatch_frontend(plan, tiles[i], device="cuda")
+            .resolve_stats() for i in (0, 1)]
+    same = []
+    for got, want in zip(merged, solo):
+        P = got.layout.P
+        lo, n = got.block_base * (P + 1), got.n_blocks * (P + 1)
+        same.append(
+            all(np.array_equal(getattr(got, f), getattr(want, f))
+                for f in ("nbps", "newsig", "sigd", "refd"))
+            and torch.equal(got.rows[lo:lo + n], want.rows))
+    say(f"default mode: 2 concurrent dispatch_frontend calls without a "
+        f"mode: {n_launches} front-end launch(es), occupancy max "
+        f"{occupancy:.0f}, windows {[type(o).__name__ for o in outs]}, "
+        f"each equal to a solo launch: {same}; wall {wall:.3f} s")
+    if n_launches != 1 or occupancy != 2 or \
+            not all(isinstance(o, _SlicedPending) for o in outs):
+        fail(f"default mode: the pair made {n_launches} launches, not one "
+             "merged launch")
+    if not all(same):
+        fail("default mode: a request's window differs from its solo launch")
+
+    # (c)
+    summary_path = os.path.join(tempfile.mkdtemp(prefix="chip-race-"),
+                                "race.json")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "bucketeer_tpu_torch.analysis",
+             "--strict", "--race", "--race-schedules", str(RACE_SCHEDULES),
+             "--race-budget-s", "240", "--race-summary-json",
+             summary_path], cwd=root, capture_output=True, text=True,
+            timeout=420, env={**os.environ, "PYTHONPATH": root})
+    except subprocess.TimeoutExpired:
+        fail("analysis: the lint and race run did not finish in 420 s")
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith(("graftrace:", "graftlint:"))]
+    for ln in lines:
+        say(f"analysis: {ln}")
+    if proc.returncode != 0:
+        fail(f"analysis: exit {proc.returncode}:\n{proc.stdout[-3000:]}"
+             f"{proc.stderr[-2000:]}")
+    with open(summary_path) as fh:
+        summary = json.load(fh)
+    shutil.rmtree(os.path.dirname(summary_path), ignore_errors=True)
+    bad = {k: summary[k] for k in ("races", "lock_cycles", "deadlocks",
+                                   "invariant_failures", "divergences")
+           if summary[k]}
+    n_scn = len(summary["scenarios"])
+    say(f"analysis: lint --strict and --race clean in {wall:.1f} s: "
+        f"{summary['interleavings']} interleavings over {n_scn} "
+        f"scenarios, {len(summary['crosscheck']['validated_fields'])} "
+        "fields validated against the static lock inference")
+    if bad or n_scn != 10 or \
+            summary["interleavings"] != RACE_SCHEDULES * n_scn:
+        fail(f"analysis: race summary {bad}, {n_scn} scenarios, "
+             f"{summary['interleavings']} interleavings")
+    counts = read_counts()
+    return {"counts": {name: launched[name] + counts[name]
+                       for name in launched}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -3218,6 +3413,10 @@ def main() -> None:
         mesh = phase_mesh(img, main_res, ref, workdir, args.seed)
         say(f"phase 11 (the mesh and batches) "
             f"{time.perf_counter() - t11:.1f} s")
+        t12 = time.perf_counter()
+        defaults = phase_defaults(img)
+        say(f"phase 12 (the defaults and the analysis) "
+            f"{time.perf_counter() - t12:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"total {time.perf_counter() - t_start:.1f} s")
@@ -3227,15 +3426,16 @@ def main() -> None:
     sl = sched["counts"]
     vl = service["counts"]
     bl = mesh["counts"]
+    dl = defaults["counts"]
     launches = {"fused_t1": (counts["fused"]["fused_t1"] + tl["fused_t1"]
                              + sl["fused_t1"] + vl["fused_t1"]
-                             + bl["fused_t1"]),
+                             + bl["fused_t1"] + dl["fused_t1"]),
                 "cxd_scan": (counts["split"]["cxd_scan"] + tl["cxd_scan"]
                              + sl["cxd_scan"] + vl["cxd_scan"]
-                             + bl["cxd_scan"]),
+                             + bl["cxd_scan"] + dl["cxd_scan"]),
                 "probe": (counts["fused"]["probe"] + counts["split"]["probe"]
                           + tl["probe"] + sl["probe"] + vl["probe"]
-                          + bl["probe"]),
+                          + bl["probe"] + dl["probe"]),
                 # No encode path runs mq_scan (the JAX package has no call
                 # site for mq_pallas either): its count is the whole run's,
                 # every launch a check against plain or fused_t1.
@@ -3246,14 +3446,16 @@ def main() -> None:
                          "backend; the scheduler's concurrent converts and "
                          "merged tensor launches (phase 8); the service's "
                          "single-image requests and fused CSV job (phase 9);"
-                         " the stored batch's bands (encode_batch, phase 11)",
+                         " the stored batch's bands (encode_batch, phase 11)"
+                         "; encode_jp2 with default parameters on the card "
+                         "(phase 12)",
              "cxd_scan": "split main path (through the process-wide "
                          "scheduler); tensor codec, replay backend; the "
                          "scheduler's concurrent split converts (phase 8); "
                          "the service's split CSV job (phase 9)",
              "probe": "first launch of each main path, tensor encode, "
-                      "the scheduler's phase, each service part and the "
-                      "batch phase",
+                      "the scheduler's phase, each service part, the "
+                      "batch phase and the default-placement encodes",
              "mq_scan": "none: the oracle surface; launches of the whole "
                         "run's kernel checks"}
     source = {"fused_t1": "fused_t1.cu", "cxd_scan": "cxd_scan.cu",

@@ -147,7 +147,8 @@ def test_split_lossy_equals_fused():
     rescale): the split's bytes equal the fused path's."""
     img = _photo(3, 64, 64, 3)
     params = t_encoder.EncodeParams(lossless=False, levels=2, rate=1.5,
-                                    n_layers=3, base_delta=0.5)
+                                    n_layers=3, base_delta=0.5,
+                                    device_mq=True)
     fused_stats, split_stats = {}, {}
     fused = t_encoder.encode_jp2(img, 8, params, device="cpu",
                                  stats=fused_stats)
@@ -165,7 +166,8 @@ def test_converter_split_equals_default(tmp_path, monkeypatch):
     src = tmp_path / "src.tif"
     Image.fromarray(_photo(4, 48, 40, 3)).save(src)
     files = []
-    for conv in (CudaConverter(device="cpu"),
+    # The card's default, the fused Tier-1, against the split.
+    for conv in (CudaConverter(device="cpu", device_mq=True),
                  CudaConverter(device="cpu", **SPLIT)):
         out = conv.convert("ark:/1/split", str(src), Conversion.LOSSLESS)
         with open(out, "rb") as fh:
@@ -181,4 +183,5 @@ def test_host_tier1_still_raises():
     host = t_encoder.encode_jp2(img, 8,
                                 t_encoder.EncodeParams(device_mq=False),
                                 device="cpu")
-    assert host == t_encoder.encode_jp2(img, 8, device="cpu")
+    assert host == t_encoder.encode_jp2(
+        img, 8, t_encoder.EncodeParams(device_mq=True), device="cpu")

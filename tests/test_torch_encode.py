@@ -1,7 +1,9 @@
 """The slice end to end on the CPU: the port's encode_jp2 (transform,
 front-end, plain fused Tier-1, PCRD, Tier-2, JP2 boxes) against the
 JAX package's encode_jp2 in its default mode. Lossless must be
-byte-identical; lossy at rate 3 must decode to the same quality."""
+byte-identical; lossy at rate 3 must decode to the same quality. The
+port's parameters say ``device_mq=True``: off the card its default is
+the host Tier-1, as the JAX package's is off a TPU."""
 import dataclasses
 
 import numpy as np
@@ -25,15 +27,17 @@ def _photo(seed, h, w, comps=1, bits=8):
 
 
 def _params(**kw):
-    """The same parameter set for both packages."""
-    return (j_encoder.EncodeParams(**kw), t_encoder.EncodeParams(**kw))
+    """The same parameter set for both packages; the port's runs the
+    fused Tier-1."""
+    return (j_encoder.EncodeParams(**kw),
+            t_encoder.EncodeParams(device_mq=True, **kw))
 
 
 def _kakadu(lossless, **over):
     j = dataclasses.replace(j_encoder.EncodeParams.kakadu_recipe(lossless),
                             **over)
     t = dataclasses.replace(t_encoder.EncodeParams.kakadu_recipe(lossless),
-                            **over)
+                            device_mq=True, **over)
     return j, t
 
 

@@ -121,7 +121,14 @@ def test_plan_and_step_map_equal(shape):
     "server/webroot/docs/index.html",
     "server/webroot/upload/csv/index.html",
     # the batch data plane's request validation
-    "batches/recipe.py"])
+    "batches/recipe.py",
+    # the flight recorder, and the race explorer's and the host lint's
+    # modules that read no JAX program
+    "obs/flight.py", "analysis/findings.py",
+    "analysis/graftrace/__init__.py", "analysis/graftrace/seam.py",
+    "analysis/graftrace/runtime.py", "analysis/graftrace/detector.py",
+    "analysis/rules_locks.py", "analysis/rules_lockorder.py",
+    "analysis/rules_hygiene.py", "analysis/rules_async.py"])
 def test_host_module_is_verbatim_copy(rel):
     """The back half and the service's host modules are copied, not
     re-implemented: same source text."""
@@ -153,12 +160,17 @@ def _code_without_docstrings(path: str, cls: str | None = None) -> str:
     ("codec/decode/t1_dec.py", None), ("codec/decode/errors.py", None),
     ("codec/mq.py", "MQDecoder"), ("engine/faults.py", None),
     ("engine/chaos.py", None), ("engine/retry.py", None),
-    ("engine/bus.py", None), ("engine/store.py", None)])
+    ("engine/bus.py", None), ("engine/store.py", None),
+    ("server/metrics.py", None), ("converters/reader.py", "_DecodeCache"),
+    ("converters/reader.py", "_IndexCache"),
+    ("analysis/rules_obs.py", None)])
 def test_decode_code_is_a_copy(rel, cls):
-    """The read path's host Tier-1, error types and MQ decoder, and the
-    engine's fault injection, chaos CLI, retry policy, bus and job store,
-    are the JAX package's code; only docstrings and comments that name
-    the other package's modules or its history differ."""
+    """The read path's host Tier-1, error types and MQ decoder, the
+    engine's fault injection, chaos CLI, retry policy, bus and job
+    store, the metrics sink and the reader's caches (with their race
+    explorer seam calls), and the tracing lint rule, are the JAX
+    package's code; only docstrings and comments that name the other
+    package's modules or its history differ."""
     got, ref = (_code_without_docstrings(os.path.join(REPO, pkg, rel), cls)
                 for pkg in ("bucketeer_tpu_torch", "bucketeer_tpu"))
     assert got == ref

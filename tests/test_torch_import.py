@@ -86,7 +86,24 @@ def test_port_imports_no_jax_and_no_jax_package():
             "bucketeer_tpu_torch.batches",
             "bucketeer_tpu_torch.batches.recipe",
             "bucketeer_tpu_torch.batches.store",
-            "bucketeer_tpu_torch.batches.assemble"} <= set(res["modules"])
+            "bucketeer_tpu_torch.batches.assemble",
+            "bucketeer_tpu_torch.analysis",
+            "bucketeer_tpu_torch.analysis.__main__",
+            "bucketeer_tpu_torch.analysis.abi",
+            "bucketeer_tpu_torch.analysis.findings",
+            "bucketeer_tpu_torch.analysis.lint",
+            "bucketeer_tpu_torch.analysis.rules_async",
+            "bucketeer_tpu_torch.analysis.rules_hygiene",
+            "bucketeer_tpu_torch.analysis.rules_lockorder",
+            "bucketeer_tpu_torch.analysis.rules_locks",
+            "bucketeer_tpu_torch.analysis.rules_obs",
+            "bucketeer_tpu_torch.analysis.graftrace",
+            "bucketeer_tpu_torch.analysis.graftrace.detector",
+            "bucketeer_tpu_torch.analysis.graftrace.explore",
+            "bucketeer_tpu_torch.analysis.graftrace.runtime",
+            "bucketeer_tpu_torch.analysis.graftrace.scenarios",
+            "bucketeer_tpu_torch.analysis.graftrace.seam"} \
+        <= set(res["modules"])
     bad = [m for m in res["new"]
            if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "bucketeer_tpu" or m.startswith("bucketeer_tpu.")
@@ -154,6 +171,13 @@ def test_port_sources_name_no_jax_import():
             "bucketeer_tpu_torch/batches/recipe.py",
             "bucketeer_tpu_torch/batches/store.py",
             "bucketeer_tpu_torch/batches/assemble.py",
+            "bucketeer_tpu_torch/analysis/__init__.py",
+            "bucketeer_tpu_torch/analysis/__main__.py",
+            "bucketeer_tpu_torch/analysis/abi.py",
+            "bucketeer_tpu_torch/analysis/lint.py",
+            "bucketeer_tpu_torch/analysis/graftrace/explore.py",
+            "bucketeer_tpu_torch/analysis/graftrace/scenarios.py",
+            "bucketeer_tpu_torch/analysis/graftrace/seam.py",
             "chip_smoke.py", "t1_ab.py", "sched_pool_ab.py",
             "mesh_cards.py"} <= rel
     offenders = []

@@ -315,6 +315,7 @@ def test_rows_lossy_equals_fused():
     img = _photo(24, 64, 64)
     params = t_encoder.EncodeParams.kakadu_recipe(False)
     params.levels, params.tile_size = 3, None
+    params.device_mq = True
     fused = t_encoder.encode_jp2(img, 8, params, device="cpu")
     params.device_mq, params.device_cxd = False, False
     assert t_encoder.encode_jp2(img, 8, params, device="cpu") == fused

@@ -92,10 +92,11 @@ def sched():
 # --- byte identity under concurrency -----------------------------------
 
 PARAMS = {
-    "lossless-fused": EncodeParams(lossless=True, levels=2),
+    "lossless-fused": EncodeParams(lossless=True, levels=2,
+                                   device_mq=True),
     "lossless-split": EncodeParams(lossless=True, levels=2, **SPLIT),
     "rate-fused": EncodeParams(lossless=False, levels=2, base_delta=2.0,
-                               rate=1.5),
+                               rate=1.5, device_mq=True),
     "rate-split": EncodeParams(lossless=False, levels=2, base_delta=2.0,
                                rate=1.5, **SPLIT),
 }
@@ -156,7 +157,7 @@ def test_merged_tensor_launch_occupancy_and_metrics():
     arrs = [rng.integers(-1, 2, size=(600,), dtype=np.int8)
             for _ in range(2)]
     imgs = _images(2, 16, seed=14)
-    params = EncodeParams(lossless=True, levels=2)
+    params = EncodeParams(lossless=True, levels=2, device_mq=True)
     try:
         serial = [encode_tensor(x, torch_device="cpu") for x in arrs]
         # Both jobs hold their slots before either dispatches a chunk,
@@ -207,7 +208,7 @@ def test_pipeline_services_stub_dispatch_sees_every_chunk():
 
     rng = np.random.default_rng(15)
     img = rng.integers(0, 4, (48, 48), dtype=np.uint8)
-    for extra, mode in (({}, "mq"), (SPLIT, "cxd")):
+    for extra, mode in (({"device_mq": True}, "mq"), (SPLIT, "cxd")):
         params = EncodeParams(lossless=True, levels=2, tile_size=16,
                               **extra)
         want = encoder.encode_jp2(img, 8, params, device="cpu")
@@ -215,7 +216,8 @@ def test_pipeline_services_stub_dispatch_sees_every_chunk():
 
         def dispatch(plan, tiles, mode="mq"):
             seen.append((len(tiles), mode))
-            return frontend.dispatch_frontend(plan, tiles, device="cpu")
+            return frontend.dispatch_frontend(plan, tiles, mode=mode,
+                                              device="cpu")
 
         with encoder.pipeline_services(dispatch=dispatch,
                                        check=lambda: polls.append(1)):
@@ -500,9 +502,9 @@ def test_concurrent_launches_spread_over_distinct_devices():
     try:
         outs, errs = _run_concurrent([
             lambda: sched.dispatch_frontend(
-                ("p1",), np.zeros((1, 2, 2, 3), np.uint8)),
+                ("p1",), np.zeros((1, 2, 2, 3), np.uint8), mode="mq"),
             lambda: sched.dispatch_frontend(
-                ("p2",), np.zeros((1, 2, 2, 3), np.uint8))])
+                ("p2",), np.zeros((1, 2, 2, 3), np.uint8), mode="mq")])
         assert errs == [None, None]
         assert sorted(o[1][0] for o in outs) == ["p1", "p2"]
         counters = sink.report()["counters"]
@@ -565,7 +567,7 @@ def test_pipeline_auto_bytes_identical():
     sink = Metrics()
     sched.set_metrics_sink(sink)
     imgs = _images(2, 16, seed=25)
-    params = EncodeParams(lossless=True, levels=2)
+    params = EncodeParams(lossless=True, levels=2, device_mq=True)
     try:
         serial = [encoder.encode_jp2(im, 8, params, device="cpu")
                   for im in imgs]
@@ -659,7 +661,8 @@ def test_stage_costs_are_means_of_completed_launches():
     try:
         assert sched.stage_costs() is None
         for _ in range(2):
-            sched.dispatch_frontend(("p",), np.zeros((1, 2, 2), np.uint8))
+            sched.dispatch_frontend(("p",), np.zeros((1, 2, 2), np.uint8),
+                                    mode="mq")
         assert sched.stage_costs() is None
         sched.dispatch_t1(lambda p: time.sleep(0.04), None)
         fa, fb = sched.stage_costs()
@@ -673,7 +676,8 @@ def test_devices_ctor_sizing():
     sched.launch_fn = _stub
     try:
         assert sched.devices == 3
-        sched.dispatch_frontend(("p",), np.zeros((1, 2, 2, 3), np.uint8))
+        sched.dispatch_frontend(("p",), np.zeros((1, 2, 2, 3), np.uint8),
+                                mode="mq")
         assert sched.pool_report()["devices"] == 3
     finally:
         sched.close()
@@ -786,7 +790,7 @@ def test_tensor_merge_stub_occupancy_and_slicing():
     try:
         holder = threading.Thread(
             target=lambda: sched.dispatch_frontend(
-                ("hold",), np.zeros((1, 2, 2, 3), np.uint8)))
+                ("hold",), np.zeros((1, 2, 2, 3), np.uint8), mode="mq"))
         holder.start()
         threads.append(holder)
         assert started.wait(timeout=JOIN_S)
@@ -909,11 +913,11 @@ def test_dispatch_after_close_is_typed_and_never_resurrects():
     sched = _tight()
     sched.launch_fn = lambda plan, tiles, mode="mq": "ok"
     assert sched.dispatch_frontend(
-        ("p",), np.zeros((1, 2, 2, 3), np.uint8)) == "ok"
+        ("p",), np.zeros((1, 2, 2, 3), np.uint8), mode="mq") == "ok"
     sched.close()
     with pytest.raises(SchedulerClosed):
         sched.dispatch_frontend(("p",), np.zeros((1, 2, 2, 3),
-                                                 np.uint8))
+                                                 np.uint8), mode="mq")
     assert not sched.device_threads_alive(), \
         "device worker resurrected after close()"
 
@@ -935,7 +939,7 @@ def test_inflight_group_completes_and_queued_job_drains_typed():
     def client(tag, plan):
         try:
             results[tag] = sched.dispatch_frontend(
-                plan, np.zeros((1, 2, 2, 3), np.uint8))
+                plan, np.zeros((1, 2, 2, 3), np.uint8), mode="mq")
         except SchedulerClosed as exc:
             errors[tag] = exc
 

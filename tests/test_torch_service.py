@@ -39,6 +39,7 @@ import bucketeer_tpu_torch.engine.faults as t_faults
 import bucketeer_tpu_torch.engine.scheduler as t_sched
 from bucketeer_tpu import config as j_cfg
 from bucketeer_tpu import features as j_features
+from bucketeer_tpu import obs as j_obs
 from bucketeer_tpu.codec import encoder as j_encoder
 from bucketeer_tpu.codec.encoder import EncodeParams as JParams
 from bucketeer_tpu.converters import ConverterError as JConverterError
@@ -47,8 +48,12 @@ from bucketeer_tpu.engine import Engine as JEngine
 from bucketeer_tpu.engine import FakeS3Client as JFakeS3
 from bucketeer_tpu.engine import RecordingSlackClient as JSlack
 from bucketeer_tpu.server.app import build_app as j_build_app
+from bucketeer_tpu.tensor import (
+    decode_to_coefficients as j_decode_to_coefficients)
+from bucketeer_tpu.tensor import encode_tensor as j_encode_tensor
 from bucketeer_tpu_torch import config as t_cfg
 from bucketeer_tpu_torch import features as t_features
+from bucketeer_tpu_torch import obs as t_obs
 from bucketeer_tpu_torch.converters import ConverterError as TConverterError
 from bucketeer_tpu_torch.converters import output_path as t_output_path
 from bucketeer_tpu_torch.engine import Engine as TEngine
@@ -73,13 +78,14 @@ PACKAGES = {
                 FakeS3=JFakeS3, Slack=JSlack, build_app=j_build_app,
                 ConverterError=JConverterError, sched=j_sched,
                 scheduler=j_sched.get_scheduler, output_path=j_output_path,
-                faults=j_faults, engine_kw={}),
+                faults=j_faults, obs=j_obs, engine_kw={}),
     "torch": dict(cfg=t_cfg, features=t_features, Engine=TEngine,
                   FakeS3=TFakeS3, Slack=TSlack, build_app=t_build_app,
                   ConverterError=TConverterError, sched=t_sched,
                   scheduler=functools.partial(t_sched.get_scheduler, "cpu"),
                   output_path=t_output_path,
-                  faults=t_faults, engine_kw={"device": "cpu"}),
+                  faults=t_faults, obs=t_obs,
+                  engine_kw={"device": "cpu"}),
 }
 
 
@@ -117,7 +123,7 @@ class World:
     root directory of its own."""
 
     def __init__(self, pkg, root, overrides=None, flags=None,
-                 converter="stub"):
+                 converter="stub", delete_timeout=0.1):
         p = PACKAGES[pkg]
         self.pkg, self.root = pkg, root
         self.faults = p["faults"]
@@ -149,7 +155,8 @@ class World:
             converter=conv,
             s3_client=p["FakeS3"](str(root / "s3")),
             slack_client=p["Slack"](), **p["engine_kw"])
-        self.app = p["build_app"](self.engine, job_delete_timeout=0.1)
+        self.app = p["build_app"](self.engine,
+                                  job_delete_timeout=delete_timeout)
         self.client = None
         self.log = []
 
@@ -171,20 +178,25 @@ class World:
         """Send one request; log what must match between the apps."""
         resp = await self.client.request(method, path,
                                          allow_redirects=False, **kw)
+        self.raw = None
         if resp.content_type == "application/json":
             body = await resp.json()
-        elif resp.content_type == "application/octet-stream":
-            body = _binary(await resp.read())
+        elif resp.content_type in ("application/octet-stream", "image/png"):
+            self.raw = await resp.read()
+            body = _binary(self.raw)
         else:
             body = await resp.text()
         entry = {"step": step, "status": resp.status,
                  "content_type": resp.content_type,
                  "body": self.norm(body)}
-        for header in ("Retry-After", "Location", "X-Batch-Format"):
+        for header in ("Retry-After", "Location", "X-Batch-Format",
+                       "X-Image-Shape", "X-Image-Dtype", "X-Tensor-Dtype",
+                       "X-Tensor-Shape", "X-Tensor-Format"):
             if header in resp.headers:
                 entry[header] = resp.headers[header]
-        if "X-Batch-Meta" in resp.headers:
-            entry["X-Batch-Meta"] = json.loads(resp.headers["X-Batch-Meta"])
+        for header in ("X-Batch-Meta", "X-Coeff-Meta"):
+            if header in resp.headers:
+                entry[header] = json.loads(resp.headers[header])
         self.headers = resp.headers
         self.log.append(entry)
         return resp.status, body
@@ -223,17 +235,27 @@ def _binary(data: bytes) -> dict:
             "sha256": hashlib.sha256(data).hexdigest()}
 
 
-def _metrics_delta(before, after):
+# What only a tensor encode on a device backend records (launches, merged
+# blocks, the device stage), left out where the two apps' backends differ.
+DEVICE_BACKEND_METRICS = ("tensor.device_launches", "tensor.batched_blocks",
+                          "tensor.encode_device")
+
+
+def _metrics_delta(before, after, skip=()):
     """The part of two /metrics reports that the script decides: the
     stages it timed (by name), its counter increments (by value), the
-    breaker section (by value), the sections present (by key)."""
+    breaker section (by value), the sections present (by key). Names
+    starting with one of ``skip`` are left out."""
+    skip = (JAX_ONLY_COUNTERS,) + tuple(skip)
+
     def count(rep, k):
         return rep["stages"].get(k, {}).get("count", 0)
     stages = sorted(k for k in after["stages"]
-                    if count(after, k) != count(before, k))
+                    if count(after, k) != count(before, k)
+                    and not k.startswith(skip))
     c0, c1 = before.get("counters", {}), after.get("counters", {})
     counters = {k: v - c0.get(k, 0) for k, v in c1.items()
-                if v != c0.get(k, 0) and not k.startswith(JAX_ONLY_COUNTERS)}
+                if v != c0.get(k, 0) and not k.startswith(skip)}
     return {"stages": stages, "counters": counters,
             "breakers": after.get("breakers"),
             "has": sorted(k for k in ("uptime_s", "stages", "sched")
@@ -529,6 +551,295 @@ async def script_batches_503(w):
     finally:
         w.faults.install(None)
 
+# --- the read, region and tensor ladders: tests/test_api.py's GET /images
+# cases, tests/test_region_api.py's and tests/test_tensor_api.py's ------
+
+@functools.lru_cache(maxsize=None)
+def _derivative(kind: str):
+    """(source image, JAX-encoded .jpx bytes) of one ladder fixture: the
+    images and parameters of the JAX suites' own cases."""
+    if kind == "gray48x40":            # test_get_image_decode_roundtrip
+        img = np.random.default_rng(5).integers(0, 256, size=(48, 40))
+        img, bits, kw = img.astype(np.uint8), 8, {}
+    elif kind == "gray32":             # test_get_image_bad_params_400
+        img = np.random.default_rng(6).integers(0, 256, size=(32, 32))
+        img, bits, kw = img.astype(np.uint8), 8, {}
+    elif kind == "rgb12":              # test_get_image_deep_rgb_png...
+        img = np.random.default_rng(8).integers(3000, 4096,
+                                                size=(32, 32, 3))
+        img, bits, kw = img.astype(np.uint16), 12, {}
+    elif kind == "region":             # test_region_api's derivative
+        img = np.random.default_rng(11).integers(0, 256, size=(64, 64, 3))
+        img, bits = img.astype(np.uint8), 8
+        kw = {"tile_size": 64, "gen_plt": True}
+    else:                              # test_tensor_api's derivative
+        img = np.random.default_rng(23).integers(0, 256, size=(64, 64, 3))
+        img, bits = img.astype(np.uint8), 8
+        kw = {"tile_size": 64, "gen_plt": True}
+    data = j_encoder.encode_jp2(img, bits, JParams(lossless=True,
+                                                   levels=2, **kw),
+                                jpx=True)
+    return img, data
+
+
+def _put_derivative(w, image_id, kind):
+    img, data = _derivative(kind)
+    with open(w.output_path(image_id, ".jpx"), "wb") as fh:
+        fh.write(data)
+    return img
+
+
+def _npy(w):
+    return np.load(io.BytesIO(w.raw))
+
+
+async def script_get_image_roundtrip(w):
+    """A real derivative decodes back through GET /images: raw npy is
+    bit-exact, reduce= shrinks, PNG is the image; decode.* metrics."""
+    from PIL import Image
+
+    img = _put_derivative(w, "ark:/9/read-me", "gray48x40")
+    status, _ = await w.call("raw", "GET",
+                             "/images/ark%3A%2F9%2Fread-me?format=raw")
+    assert status == 200 and w.headers["X-Image-Shape"] == "48x40"
+    np.testing.assert_array_equal(_npy(w), img)
+    await w.call("raw reduce=1", "GET",
+                 "/images/ark%3A%2F9%2Fread-me?format=raw&reduce=1")
+    assert _npy(w).shape == (24, 20)
+    status, _ = await w.call("png", "GET", "/images/ark%3A%2F9%2Fread-me")
+    assert status == 200
+    np.testing.assert_array_equal(
+        np.asarray(Image.open(io.BytesIO(w.raw))), img)
+    # Timings differ between the apps: read, not logged (the harness
+    # compares the counter increments of both).
+    metrics = await (await w.client.get("/metrics")).json()
+    assert "decode.t2_parse" in metrics["stages"]
+    assert metrics["counters"]["decode.requests"] >= 3
+    assert metrics["counters"]["decode.partial_requests"] >= 1
+
+
+async def script_get_image_bad_params(w):
+    """Malformed read parameters are 400s, and so is a reduce beyond a
+    healthy derivative's levels (not a corrupt-derivative 500)."""
+    for step, query in [("reduce -1", "reduce=-1"),
+                        ("reduce word", "reduce=abc"),
+                        ("layers 0", "layers=0"),
+                        ("format bmp", "format=bmp")]:
+        status, _ = await w.call(step, "GET", f"/images/x?{query}")
+        assert status == 400, step
+    _put_derivative(w, "shallow", "gray32")
+    status, _ = await w.call("reduce beyond levels", "GET",
+                             "/images/shallow?reduce=6")
+    assert status == 400
+
+
+async def script_get_image_deep_rgb(w):
+    """A 12-bit RGB derivative's PNG is downshifted by 4 bits."""
+    from PIL import Image
+
+    img = _put_derivative(w, "deep-rgb", "rgb12")
+    status, _ = await w.call("png 12-bit rgb", "GET", "/images/deep-rgb")
+    assert status == 200
+    np.testing.assert_array_equal(
+        np.asarray(Image.open(io.BytesIO(w.raw))),
+        (img >> 4).astype(np.uint8))
+
+
+async def script_get_image_corrupt(w):
+    """A corrupt stored derivative is a 500 with the failure counted."""
+    with open(w.output_path("broken", ".jpx"), "wb") as fh:
+        fh.write(b"JPX!but not really")
+    status, _ = await w.call("corrupt derivative", "GET",
+                             "/images/broken")
+    assert status == 500
+
+
+async def script_region_crop(w):
+    """Region reads: the crop, the full and square aliases, region with
+    reduce; decode.region_* counters and the index build."""
+    img = _put_derivative(w, "ark:/9/region", "region")
+    base = "/images/ark%3A%2F9%2Fregion?format=raw"
+    status, _ = await w.call("region", "GET", f"{base}&region=8,16,24,20")
+    assert status == 200
+    np.testing.assert_array_equal(_npy(w), img[16:36, 8:32])
+    await w.call("region full", "GET", f"{base}&region=full")
+    np.testing.assert_array_equal(_npy(w), img)
+    await w.call("region square", "GET", f"{base}&region=square")
+    np.testing.assert_array_equal(_npy(w), img)
+    status, _ = await w.call("region with reduce", "GET",
+                             f"{base}&region=0,0,32,32&reduce=1")
+    assert status == 200 and _npy(w).shape == (16, 16, 3)
+
+
+BAD_REGIONS = ["region=1,2,3", "region=1,2,3,4,5", "region=a,0,10,10",
+               "region=1.5,0,10,10", "region=,,,", "region=0,0,0,10",
+               "region=0,0,10,0", "region=0,0,-5,10", "region=-1,0,10,10",
+               "region=9999,0,10,10", "region=0,9999,10,10"]
+
+
+async def script_region_bad_400(w):
+    """Every malformed or out-of-image region is a typed 400."""
+    _put_derivative(w, "bad-region", "region")
+    for query in BAD_REGIONS:
+        status, _ = await w.call(query, "GET", f"/images/bad-region?{query}")
+        assert status == 400, query
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_coefficients(kind: str) -> dict:
+    """The JAX decode_to_coefficients of a fixture derivative, by npz
+    key."""
+    return {f"r{r}_{n}": arr for (r, n), arr in
+            j_decode_to_coefficients(_derivative(kind)[1])
+            .to_host().items()}
+
+
+def _coefficient_hashes(kind: str, window=None) -> dict:
+    """:func:`_jax_coefficients` as _binary hashes (``window``: the
+    X-Coeff-Meta windows of a region read)."""
+    out = {}
+    for key, arr in _jax_coefficients(kind).items():
+        if window is not None:
+            win = window[key]
+            arr = np.ascontiguousarray(arr[:, win[0]:win[1],
+                                           win[2]:win[3]])
+        out[key] = [str(arr.dtype), list(arr.shape),
+                    hashlib.sha256(arr.tobytes()).hexdigest()]
+    return out
+
+
+async def script_coefficients(w):
+    """GET /images/{id}/coefficients: the npz equals the JAX package's
+    decode_to_coefficients, whole and windowed to a region."""
+    _put_derivative(w, "coeff-img", "coeffs")
+    status, body = await w.call("coefficients", "GET",
+                                "/images/coeff-img/coefficients")
+    assert status == 200
+    meta = json.loads(w.headers["X-Coeff-Meta"])
+    assert meta["levels"] == 2 and meta["reversible"] is True
+    assert body["npz"] == _coefficient_hashes("coeffs")
+    status, body = await w.call(
+        "coefficients region", "GET",
+        "/images/coeff-img/coefficients?region=8,8,32,32")
+    assert status == 200
+    meta = json.loads(w.headers["X-Coeff-Meta"])
+    assert body["npz"] == _coefficient_hashes("coeffs", meta["windows"])
+
+
+async def script_coefficients_errors(w):
+    """Coefficient reads: 404 for no derivative, 400 for bad params."""
+    _put_derivative(w, "coeff-img", "coeffs")
+    await w.call("no such derivative", "GET", "/images/no-such/coefficients")
+    for query in ("reduce=-1", "reduce=9", "region=1,2,3",
+                  "region=0,0,0,5"):
+        status, _ = await w.call(query, "GET",
+                                 f"/images/coeff-img/coefficients?{query}")
+        assert status == 400, query
+
+
+@functools.lru_cache(maxsize=None)
+def _tensor_fixture():
+    """The round-trip tensor and the JAX host backend's blob of it. The
+    values are few distinct floats: the port codes the tensor with
+    fused_t1's plain version on the CPU, seconds per coded bit-plane."""
+    rng = np.random.default_rng(29)
+    arr = rng.choice(np.array([0.0, 0.5, -1.0, 2.0], np.float32), (40, 30))
+    return arr, j_encode_tensor(arr, device="host")
+
+
+def _warm_fixtures():
+    """Everything the scripts compute with the JAX package, computed
+    before either app's /metrics baseline is read (the JAX codec records
+    into the registry the JAX app serves)."""
+    for i in range(3):
+        _batch_item(i)
+    for kind in ("gray48x40", "gray32", "rgb12", "region", "coeffs"):
+        _derivative(kind)
+    _jax_coefficients("coeffs")
+    _tensor_fixture()
+
+
+async def script_tensor_roundtrip(w):
+    """POST /tensors then GET: exact npy round trip, planes= truncation,
+    and the raw blob, which is the JAX host backend's bytes."""
+    arr, blob = _tensor_fixture()
+    before = (await (await w.client.get("/metrics")).json()).get(
+        "counters", {})
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    status, stats = await w.call("post", "POST", "/tensors/ckpt%2Flayer0",
+                                 data=buf.getvalue())
+    assert status == 201
+    assert (stats["tensor-id"], stats["dtype"], stats["shape"]) == (
+        "ckpt/layer0", "float32", [40, 30])
+    assert stats["coded_bytes"] > 0
+    status, _ = await w.call("get", "GET", "/tensors/ckpt%2Flayer0")
+    assert status == 200 and w.headers["X-Tensor-Dtype"] == "float32"
+    np.testing.assert_array_equal(_npy(w).view(np.uint32),
+                                  arr.view(np.uint32))
+    await w.call("get planes=8", "GET", "/tensors/ckpt%2Flayer0?planes=8")
+    assert _npy(w).shape == arr.shape
+    await w.call("get blob", "GET", "/tensors/ckpt%2Flayer0?format=blob")
+    assert w.raw == blob
+    metrics = await (await w.client.get("/metrics")).json()
+
+    def delta(name):
+        return metrics["counters"].get(name, 0) - before.get(name, 0)
+    assert delta("tensor.encode_requests") == 1
+    assert delta("tensor.decode_requests") >= 2
+    assert "tensor.encode" in metrics["stages"]
+
+
+async def script_tensor_errors(w):
+    """Tensor routes: 404 for an unknown id, 400 for empty, garbage,
+    unsupported-dtype bodies and a non-integer planes=."""
+    await w.call("unknown tensor", "GET", "/tensors/none")
+    await w.call("empty body", "POST", "/tensors/x", data=b"")
+    await w.call("garbage body", "POST", "/tensors/x", data=b"not an npy")
+    buf = io.BytesIO()
+    np.save(buf, np.zeros(4, dtype=np.complex64))
+    status, _ = await w.call("complex64", "POST", "/tensors/x",
+                             data=buf.getvalue())
+    assert status == 400
+    buf = io.BytesIO()
+    np.save(buf, np.zeros(4, dtype=np.int8))
+    status, _ = await w.call("planes word", "POST", "/tensors/x?planes=zzz",
+                             data=buf.getvalue())
+    assert status == 400
+
+
+async def script_tensor_503(w):
+    """QueueFull on POST /tensors is a 503 with Retry-After."""
+    buf = io.BytesIO()
+    np.save(buf, np.zeros(8, dtype=np.int8))
+    w.faults.install(w.faults.FaultPlan().at(
+        "sched.submit", lambda: w.sched.QueueFull(1, 2.5, "tensor"),
+        times=1))
+    try:
+        status, _ = await w.call("tensor queue full", "POST",
+                                 "/tensors/busy", data=buf.getvalue())
+        assert status == 503
+    finally:
+        w.faults.install(None)
+
+
+async def script_delete_active_job(w):
+    """A job that makes progress during the delete probe window refuses
+    deletion (400) and stays."""
+    await w.call("csv upload", "POST", "/batch/input/csv", data=_csv_form())
+    assert await _wait(lambda: len(w.engine.s3_client.metadata) == 2)
+
+    async def patch_during_probe():
+        await asyncio.sleep(0.1)
+        await w.client.patch("/batch/jobs/test-job/ark%3A%2F1%2Fa/true")
+
+    task = asyncio.create_task(patch_during_probe())
+    status, _ = await w.call("delete active job", "DELETE",
+                             "/batch/jobs/test-job")
+    await task
+    assert status == 400 and "test-job" in w.engine.store
+    await w.call("jobs", "GET", "/batch/jobs")
+
 
 def _expect_uploads(n):
     def check(out):
@@ -578,6 +889,38 @@ SCRIPTS = {
                      _expect_uploads(0)),
     "batches_503": (script_batches_503, {"tmpdir": True},
                     _expect_uploads(0)),
+    # tests/test_api.py's GET /images ladder, tests/test_region_api.py's
+    # region reads and tests/test_tensor_api.py's routes.
+    "get_image_roundtrip": (script_get_image_roundtrip, {"tmpdir": True},
+                            _expect_uploads(0)),
+    "get_image_bad_params": (script_get_image_bad_params,
+                             {"tmpdir": True}, _expect_uploads(0)),
+    "get_image_deep_rgb": (script_get_image_deep_rgb, {"tmpdir": True},
+                           _expect_uploads(0)),
+    "get_image_corrupt": (script_get_image_corrupt, {"tmpdir": True},
+                          _expect_uploads(0)),
+    "region_crop": (script_region_crop, {"tmpdir": True},
+                    _expect_uploads(0)),
+    "region_bad_400": (script_region_bad_400, {"tmpdir": True},
+                       _expect_uploads(0)),
+    "coefficients": (script_coefficients, {"tmpdir": True},
+                     _expect_uploads(0)),
+    "coefficients_errors": (script_coefficients_errors, {"tmpdir": True},
+                            _expect_uploads(0)),
+    # The JAX app on its host tensor backend, as tests/test_tensor_api.py
+    # runs it (its device backend costs a JAX compile of minutes on the
+    # CPU); the port's app reads no such switch and codes on its device
+    # backend, so the two backends' own counters are left out.
+    "tensor_roundtrip": (script_tensor_roundtrip, {
+        "tmpdir": True, "jax_env": {"BUCKETEER_TENSOR_BACKEND": "host"},
+        "backend_metrics": DEVICE_BACKEND_METRICS}, _expect_uploads(0)),
+    "tensor_errors": (script_tensor_errors, {"tmpdir": True},
+                      _expect_uploads(0)),
+    "tensor_503": (script_tensor_503, {"tmpdir": True},
+                   _expect_uploads(0)),
+    "delete_active_job": (script_delete_active_job, {
+        "overrides": {"bucketeer.batch.mode": "lambda"},
+        "delete_timeout": 0.3}, _expect_uploads(2)),
 }
 
 
@@ -600,20 +943,32 @@ async def test_both_apps_answer_the_script_alike(name, tmp_path,
     script, kw, check = SCRIPTS[name]
     kw = dict(kw)
     own_tmpdir = kw.pop("tmpdir", False)
+    jax_env = kw.pop("jax_env", {})
+    backend_metrics = kw.pop("backend_metrics", ())
     # The port's batch mesh: 8 CPU entries, as JAX's 8 CPU devices.
     monkeypatch.setattr(t_pmesh, "visible_devices",
                         lambda device="cuda": [torch.device("cpu")] * 8)
     if own_tmpdir:
-        # Encoded before either app's /metrics baseline is read.
-        for i in range(3):
-            _batch_item(i)
+        _warm_fixtures()
     results = {}
     for pkg in ("jax", "torch"):
         root = tmp_path / pkg
         root.mkdir()
         if own_tmpdir:
             monkeypatch.setenv("BUCKETEER_TMPDIR", str(root))
+        for key, value in jax_env.items():
+            if pkg == "jax":
+                monkeypatch.setenv(key, value)
+            else:
+                monkeypatch.delenv(key, raising=False)
         w = World(pkg, root, **kw)
+        rec = PACKAGES[pkg]["obs"].get_recorder()
+        if rec is not None:
+            # The process recorder outlives the test and rate-limits its
+            # flight dumps by the clock: let each world's first 5xx dump
+            # and suppress the rest, whenever the last test's dump was.
+            monkeypatch.setattr(rec.flight, "_last", None)
+            monkeypatch.setattr(rec.flight, "min_interval_s", 3600.0)
         w.client = await aiohttp_client(w.app)
         before = await (await w.client.get("/metrics")).json()
         await script(w)
@@ -622,7 +977,7 @@ async def test_both_apps_answer_the_script_alike(name, tmp_path,
         prom = await w.client.get("/metrics?format=prometheus")
         results[pkg] = {
             "log": w.log, "outputs": w.outputs(),
-            "metrics": _metrics_delta(before, after),
+            "metrics": _metrics_delta(before, after, backend_metrics),
             "prometheus": (prom.status, prom.content_type)}
         await w.client.close()
     j, t = results["jax"], results["torch"]

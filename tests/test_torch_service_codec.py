@@ -55,9 +55,12 @@ def _config(cfg, root, overrides=None):
 
 
 def _torch_app(root, overrides=None):
-    """The port's app on its real converter, on the CPU."""
+    """The port's app on its real converter, on the CPU, with the card's
+    default Tier-1 (the fused kernel's plain version): a converter of
+    its own, so the setting reaches no other test's."""
     engine = TEngine(_config(t_cfg, root, overrides),
                      flags=t_features.FeatureFlagChecker(static={}),
+                     converter=CudaConverter(device="cpu", device_mq=True),
                      s3_client=TFakeS3(str(root / "s3")),
                      slack_client=TSlack(), device="cpu")
     return t_build_app(engine), engine

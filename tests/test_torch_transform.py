@@ -82,7 +82,7 @@ def test_frontend_mq_outputs(lossless, c):
     tp = t_pipeline.make_plan(*args)
     pend = j_frontend.dispatch_frontend(jp, tiles, mode="mq")
     jres = pend.resolve_stats()
-    tres = t_frontend.dispatch_frontend(tp, tiles,
+    tres = t_frontend.dispatch_frontend(tp, tiles, mode="mq",
                                         device="cpu").resolve_stats()
     astuple = dataclasses.astuple
     assert [astuple(m) for m in t_frontend.layout_for(tp).metas] == \
