@@ -1,21 +1,29 @@
-"""graftlint and graftrace over the PyTorch port's host code: the JAX
-package's static rules and race explorer that read no JAX program.
+"""graftlint, the dispatch audit and graftrace over the PyTorch port.
 
 - **Lint engine** (``python -m bucketeer_tpu_torch.analysis``): AST rules
   for swallowed exceptions and empty packages (:mod:`rules_hygiene`),
   blocking calls in async handlers (:mod:`rules_async`), lock discipline
   and lock order (:mod:`rules_locks`, :mod:`rules_lockorder`), tracing
-  hygiene (:mod:`rules_obs`), and a ``ctypes`` <-> C/C++/CUDA ABI
-  cross-check of the port's hand-written bindings (:mod:`abi`).
-  Suppression syntax: ``# graftlint: disable=<rule>``.
+  hygiene (:mod:`rules_obs`), host syncs, float64 and stray
+  device-to-host copies in the device region (:mod:`rules_torch`), and a
+  ``ctypes`` <-> C/C++/CUDA ABI cross-check of the port's hand-written
+  bindings (:mod:`abi`). Suppression syntax:
+  ``# graftlint: disable=<rule>``.
+- **Dispatch audit** (``--audit``, :mod:`deviceaudit`): the registered
+  device programs run on the card (``--audit-device cpu`` asks for the
+  host) under a recorder of their aten ops — float64, host syncs and
+  device-to-host copies, each by package function.
+- **Runtime contracts** (:mod:`contracts`): shape/dtype checks on the
+  codec entry points, on under tests or ``BUCKETEER_CONTRACTS=1``.
+- **Kernel-build sentinel** (:mod:`retrace`): native library compiles
+  per library, on ``/metrics`` as ``retrace.<library>``.
 - **Race explorer** (``--race``, :mod:`graftrace`): the serving core's
   scenario suite under a controlled scheduler — data races, lock
   inversions, deadlocks and broken invariants, each with a replayable
   schedule.
 
-The JAX package's device-region rules, donation rule, compiled-artifact
-audit, cost model and mesh audit read ``jax.jit`` roots and lowered
-programs, which this package has none of; they are not here.
+The JAX package's donation rule, cost model and mesh audit read
+lowered programs, which eager PyTorch has none of; they are not here.
 """
 from .findings import ERROR, WARNING, Finding
 from .lint import load_baseline, run_lint

@@ -1,14 +1,22 @@
 """graftlint CLI over the port: ``python -m bucketeer_tpu_torch.analysis
-[--strict] [--baseline FILE] [--race ...] [--race-replay FILE] [--json]
-[paths]``.
+[--strict] [--baseline FILE] [--audit [--audit-device {cpu,cuda}]]
+[--race ...] [--race-replay FILE] [--json] [paths]``.
 
 Exit codes: 0 clean (in non-strict mode, warnings alone stay clean),
 1 findings, 2 bad invocation.
 
-The lint runs the host rules and the ABI cross-check (:mod:`.lint`)
-over the package (or ``paths``). ``--race`` adds the dynamic layer
-(graftrace): the serving core's scenario suite is executed under the
-controlled scheduler, exploring interleavings systematically (bounded
+The lint runs the host rules, the device-region rules and the ABI
+cross-check (:mod:`.lint`) over the package (or ``paths``). ``--audit``
+adds the dispatch audit (:mod:`.deviceaudit`): every registered device
+program runs on ``--audit-device`` (default cuda, which needs a card:
+without one the run exits 2; ``cpu`` reports the hand-written kernels
+as skipped and counts no device-to-host copies) under a recorder of its
+aten ops, one line per program is printed, and a float64 output or a
+host sync or device-to-host copy outside the sanctioned functions fails
+the run; the d2h whitelist is validated against the code. ``--race`` adds the
+dynamic layer (graftrace): the serving core's scenario suite is executed
+under the controlled scheduler, exploring interleavings systematically
+(bounded
 preemptions) and by seeded random walk within ``--race-budget-s``;
 data races, lock-inversion cycles, deadlocks and broken scenario
 invariants become findings, each carrying the schedule that produced
@@ -75,6 +83,18 @@ def main(argv=None) -> int:
     parser.add_argument("--baseline", default=None,
                         help=f"baseline file (default: {DEFAULT_BASELINE} "
                              "next to the linted package, if present)")
+    parser.add_argument("--audit", action="store_true",
+                        help="run every registered device program under "
+                             "the dispatch recorder: float64, host syncs "
+                             "and device-to-host copies outside the "
+                             "sanctioned functions fail")
+    parser.add_argument("--audit-device", default="cuda",
+                        choices=("cpu", "cuda"),
+                        help="device the audited programs run on "
+                             "(default cuda, which also runs the "
+                             "hand-written kernels and counts the "
+                             "device-to-host copies; cpu skips the "
+                             "kernels and counts no copies)")
     parser.add_argument("--race", action="store_true",
                         help="explore scheduler/cache interleavings "
                              "under the graftrace controlled scheduler "
@@ -139,6 +159,21 @@ def main(argv=None) -> int:
             STALE_BASELINE, str(baseline_path), 1,
             f"baseline fingerprint {fp} matches no live finding — "
             "remove it from the baseline", "warning"))
+
+    if args.audit:
+        from . import deviceaudit
+
+        try:
+            deviceaudit.device_type(args.audit_device)
+        except RuntimeError as exc:         # the card, and no CUDA
+            print(str(exc), file=sys.stderr)
+            return 2
+        audit_findings, facts = deviceaudit.run_audit(
+            args.audit_device, package_root=roots[0])
+        findings += audit_findings
+        if not args.as_json:
+            for f in facts:
+                print(deviceaudit.render(f))
 
     if args.race:
         from .graftrace import explore

@@ -9,10 +9,12 @@ pre-existing findings.
 
 Rules live in :mod:`rules_hygiene` (exception hygiene, empty
 packages), :mod:`rules_async`, :mod:`rules_locks`,
-:mod:`rules_lockorder`, :mod:`rules_obs` and :mod:`abi` (the ctypes <->
-C/C++/CUDA cross-checker of the hand-written kernel and host-coder
-bindings). The JAX package's device-region and donation rules walk from
-``jax.jit`` roots, which this package has none of.
+:mod:`rules_lockorder`, :mod:`rules_obs`, :mod:`rules_torch` (host
+syncs, float64 and stray device-to-host copies in the device region,
+walked from the dispatch audit's registered programs) and :mod:`abi`
+(the ctypes <-> C/C++/CUDA cross-checker of the hand-written kernel and
+host-coder bindings). The JAX package's donation rule has no eager
+counterpart: nothing is donated.
 """
 from __future__ import annotations
 
@@ -265,7 +267,7 @@ def run_lint(root: Path, baseline: set | None = None,
     baseline to report (and ``--prune-baseline`` to drop) stale
     entries."""
     from . import abi, rules_async, rules_hygiene, rules_lockorder, \
-        rules_locks, rules_obs
+        rules_locks, rules_obs, rules_torch
 
     project = load_project(Path(root))
     findings: list = []
@@ -280,6 +282,7 @@ def run_lint(root: Path, baseline: set | None = None,
     findings += rules_locks.run(project)
     findings += rules_lockorder.run(project)
     findings += rules_obs.run(project)
+    findings += rules_torch.run(project)
     if native_dir is None:
         candidate = Path(root) / "csrc"
         native_dir = candidate if candidate.is_dir() else None

@@ -32,6 +32,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ...analysis.contracts import contract
 from ..dwt import _along_rows, _inv53_last, dwt2d_inverse
 from ..pipeline import _band_geometry
 from ..transforms import ict_inverse, level_shift_inverse, rct_inverse
@@ -142,6 +143,8 @@ def _device_inverse(plan: InversePlan, hvals: np.ndarray,
     return _inverse_body(plan, half_map, hv)
 
 
+@contract(shapes={"hvals": ("B", "C", "h", "w")},
+          dtypes={"hvals": "integer"})
 def run_inverse(plan: InversePlan, hvals: np.ndarray,
                 device="cuda") -> np.ndarray:
     """Run the inverse on ``device`` for a (B, C, h, w) int32 batch of

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..analysis.contracts import contract
 from . import codestream as cs
 from . import cxd as cxd_mod
 from . import frontend
@@ -737,6 +738,8 @@ def _build_chunks(groups: dict, plans: dict, used_mct: bool, gains,
     return chunks, tile_records, qcd_values
 
 
+@contract(shapes={"img": [("H", "W"), ("H", "W", "C")]},
+          dtypes={"img": "number"})
 def encode_array(img: np.ndarray, bitdepth: int = 8,
                  params: EncodeParams | None = None, mesh=None,
                  device="cuda", stats: dict | None = None) -> bytes:
@@ -1247,6 +1250,8 @@ def _tier1_mode(params: EncodeParams, device) -> str:
     return "cxd" if params.device_cxd else "rows"
 
 
+@contract(shapes={"img": [("H", "W"), ("H", "W", "C")]},
+          dtypes={"img": "number"})
 def encode_jp2(img: np.ndarray, bitdepth: int = 8,
                params: EncodeParams | None = None, jpx: bool = False,
                mesh=None, device="cuda", stats: dict | None = None) -> bytes:

@@ -28,6 +28,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..analysis.contracts import contract
 from .pipeline import TilePlan, _step_map, _transform_batch
 from .quant import FRAC_BITS
 
@@ -266,6 +267,8 @@ class PendingFrontend:
                               rows=self.rows, block_base=off)
 
 
+@contract(shapes={"tiles": [("B", "h", "w"), ("B", "h", "w", "C")]},
+          dtypes={"tiles": "number"})
 def dispatch_frontend(plan: TilePlan, tiles: np.ndarray, mode: str = "rows",
                       device: str | torch.device = "cuda"
                       ) -> PendingFrontend:
@@ -302,6 +305,8 @@ def dispatch_frontend(plan: TilePlan, tiles: np.ndarray, mode: str = "rows",
     return PendingFrontend(layout, tiles.shape[0], out, stats)
 
 
+@contract(shapes={"tiles": [("B", "h", "w"), ("B", "h", "w", "C")]},
+          dtypes={"tiles": "number"})
 def run_frontend(plan: TilePlan, tiles: np.ndarray,
                  device: str | torch.device = "cuda") -> FrontendResult:
     """Mode "rows" front-end for a (B, h, w[, C]) tile batch, waiting
@@ -356,6 +361,7 @@ def payload_plan(nbps: np.ndarray, floors: np.ndarray, P: int):
     return src, offsets
 
 
+@contract(shapes={"src": ("R",)}, dtypes={"src": "integer"})
 def fetch_payload(result: FrontendResult, src: np.ndarray) -> np.ndarray:
     """Compact the selected bitmap rows on the device and copy them to
     the host, GATHER_CHUNK rows at a time. Returns (R, 512) uint8.

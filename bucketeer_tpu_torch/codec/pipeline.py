@@ -18,6 +18,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..analysis.contracts import contract
 from .dwt import dwt2d_forward, synthesis_gains
 from .quant import (FRAC_BITS, SubbandQuant, quantize_fp,
                     signal_irreversible, signal_reversible,
@@ -175,6 +176,8 @@ def _stageable(tiles: np.ndarray) -> np.ndarray:
     return tiles
 
 
+@contract(shapes={"tiles": [("B", "h", "w"), ("B", "h", "w", "C")]},
+          dtypes={"tiles": "number"})
 def run_tiles(plan: TilePlan, tiles: np.ndarray,
               device: str | torch.device = "cuda") -> np.ndarray:
     """Encode-transform a (B, h, w[, C]) batch of tiles on ``device``;

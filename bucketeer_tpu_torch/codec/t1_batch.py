@@ -23,6 +23,7 @@ import os
 
 import numpy as np
 
+from ..analysis.contracts import contract
 from ..kernels.build import Library
 from . import t1
 
@@ -76,6 +77,12 @@ def _collect(lib, handle, n: int) -> list:
         lib.t1_result_free(handle)
 
 
+@contract(shapes={"payload": ("R", 512), "offsets": ("n1",),
+                  "nbps": ("n",), "floors": ("n",), "hs": ("n",),
+                  "ws": ("n",)},
+          dtypes={"payload": "uint8", "offsets": "integer",
+                  "nbps": "integer", "floors": "integer",
+                  "hs": "integer", "ws": "integer"})
 def encode_packed(payload: np.ndarray, offsets: np.ndarray,
                   nbps: np.ndarray, floors: np.ndarray, hs: np.ndarray,
                   ws: np.ndarray, bands: list) -> list:

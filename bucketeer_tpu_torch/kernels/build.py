@@ -4,7 +4,9 @@ Each :class:`Library` compiles its sources from ``csrc/`` into
 BUILD_DIR with nvcc (the CUDA kernels) or g++ (the host MQ replay),
 names the shared library by the hash of its sources, headers and
 flags, and loads it with ctypes. A failed build raises with the
-compiler's output; nothing falls back to another implementation.
+compiler's output; nothing falls back to another implementation. Every
+compile and every load is counted per library by the build sentinel
+(analysis/retrace.py).
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import threading
 import time
 
 import torch
+
+from ..analysis import retrace
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -109,6 +113,7 @@ class Library:
             raise RuntimeError(f"building {self.name} failed:\n"
                                + self.build_log)
         os.replace(tmp, lib)
+        retrace.record_build(self.name)
         return lib
 
     def library(self) -> ctypes.CDLL:
@@ -117,6 +122,7 @@ class Library:
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(self._build_locked())
+                retrace.record_load(self.name)
                 for sym, (argtypes, restype) in self.functions.items():
                     fn = getattr(lib, sym)
                     fn.argtypes = argtypes

@@ -45,6 +45,9 @@ def check_steps(n_steps: int, totals: torch.Tensor, stride: int) -> None:
     if n_steps % MQ_UNROLL:
         raise ValueError(f"n_steps {n_steps} not a multiple of "
                          f"MQ_UNROLL {MQ_UNROLL}")
+    # Validation of the caller's totals before any launch: one host
+    # read of their maximum.
+    # graftlint: disable=host-sync
     most = int(totals.max()) if totals.numel() else 0
     if most > n_steps:
         raise ValueError(f"n_steps {n_steps} is below a block's symbol "
@@ -103,6 +106,9 @@ def mq_scan_plain(L: int, n_steps: int, cap: int, syms, counts, totals,
     snaps = torch.zeros((n, L, 3), dtype=i64, device=dev)
     totals = totals.to(i64)
     counts = counts.to(i64)
+    # The plain version runs the coder step by step on the host's
+    # count of steps (the kernel loops on the card).
+    # graftlint: disable=host-sync
     steps = int(totals.max()) if n else 0
     for s in range(steps):
         live = s < totals
@@ -139,7 +145,7 @@ def mq_scan_plain(L: int, n_steps: int, cap: int, syms, counts, totals,
             ct = ct - kk
             rem = rem - kk
             b_here = b_prev & (ct == 0)
-            if not bool(b_here.any()):
+            if not bool(b_here.any()):  # graftlint: disable=host-sync
                 break          # no lane left to shift: later rounds are identities
             c, ct, pending, cur = _mq_byteout(b_here, c, ct, pending, out,
                                               cur, cap)

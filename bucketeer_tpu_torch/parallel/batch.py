@@ -12,11 +12,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..analysis.contracts import contract
 from ..codec.pipeline import TilePlan, _stageable, _step_map, \
     _transform_batch
 from .mesh import DATA_AXIS, DeviceMesh, batch_sharding
 
 
+@contract(shapes={"tiles": [("B", "h", "w"), ("B", "h", "w", "C")]},
+          dtypes={"tiles": "number"})
 def run_tiles_sharded(plan: TilePlan, tiles: np.ndarray,
                       mesh: DeviceMesh) -> np.ndarray:
     """Like :func:`bucketeer_tpu_torch.codec.pipeline.run_tiles` but with

@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..analysis.contracts import contract
 from ..codec.dwt import (ALPHA, BETA, DELTA, GAMMA, K_HI, K_LO,
                          _fwd53_last, _fwd97_last)
 from ..codec.pipeline import (_epilogue, _mallat, _prologue, _stageable,
@@ -129,6 +130,8 @@ def _gather(ll: list, bands: list, device):
              for b in bands])
 
 
+@contract(shapes={"x": [("H", "W"), ("C", "H", "W")]},
+          dtypes={"x": "number"})
 def sharded_dwt2d_forward(x: torch.Tensor, levels: int, reversible: bool,
                           mesh: DeviceMesh):
     """Multi-level forward DWT of one giant tile, rows split over the
@@ -143,6 +146,8 @@ def sharded_dwt2d_forward(x: torch.Tensor, levels: int, reversible: bool,
                                row_sharding(x, mesh, dim=-2)), x.device)
 
 
+@contract(shapes={"tile": [("H", "W"), ("H", "W", "C")]},
+          dtypes={"tile": "number"})
 def sharded_transform_tile(plan, tile: np.ndarray,
                            mesh: DeviceMesh) -> np.ndarray:
     """The single-giant-tile encode transform, rows split over the

@@ -102,6 +102,10 @@ class Api:
         from ..engine.scheduler import get_scheduler
         codec_encoder.set_metrics_sink(self.metrics)
         codec_decode.set_metrics_sink(self.metrics)
+        # Kernel-build sentinel: each compile of a native library (the
+        # port's only compile stall) bumps retrace.<library>.
+        from ..analysis import retrace
+        retrace.set_metrics_sink(self.metrics)
         # The cross-request encode scheduler reports queue-wait,
         # per-launch batch occupancy and admission rejects into the
         # same registry, so /metrics shows the serving picture whole.

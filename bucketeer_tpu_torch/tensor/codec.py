@@ -149,17 +149,28 @@ def _encode_host(rows: np.ndarray, floors: np.ndarray) -> list:
 def pack_blocks(rows: np.ndarray, device) -> tuple:
     """The block packer: a chunk's (N, 4096) int32 host rows to the
     (N, 64, 64) block batch on ``device`` (one host-to-device copy; the
-    blocks stay there for the Tier-1 launch) and the (N,) int32 coded
-    plane counts, from the per-block magnitude maxima — the only
-    device-to-host fetch before the launch."""
+    blocks stay there for the Tier-1 launch) and the (N,) per-block
+    magnitude maxima, on ``device`` too (:func:`fetch_block_meta`
+    brings them over)."""
     blocks = torch.from_numpy(np.ascontiguousarray(rows)).to(
         device).reshape(-1, BLOCK, BLOCK)
-    maxmag = blocks.abs().amax((1, 2)).cpu().numpy()
+    return blocks, blocks.abs().amax((1, 2))
+
+
+def fetch_block_meta(maxmag: torch.Tensor) -> np.ndarray:
+    """The pack stage's one device-to-host transfer: the (N,) per-block
+    magnitude maxima (4 bytes a block; the blocks stay on the device for
+    the Tier-1 launch). Sanctioned in rules_torch.D2H_SANCTIONED."""
+    return maxmag.cpu().numpy()
+
+
+def _coded_planes(maxmag: np.ndarray) -> np.ndarray:
+    """(N,) int32 coded plane counts from the host magnitude maxima."""
     nbps = np.zeros(len(maxmag), dtype=np.int32)
     nz = maxmag > 0
     nbps[nz] = np.floor(np.log2(maxmag[nz].astype(np.float64))).astype(
         np.int32) + 1
-    return blocks, nbps
+    return nbps
 
 
 def encode_chunk_device(rows: np.ndarray, floors: np.ndarray,
@@ -174,7 +185,8 @@ def encode_chunk_device(rows: np.ndarray, floors: np.ndarray,
                          "not a card backend (device | replay)")
     device = require_device(device)
     t0 = time.perf_counter()
-    blocks, nbps = pack_blocks(rows, device)
+    blocks, maxmag = pack_blocks(rows, device)
+    nbps = _coded_planes(fetch_block_meta(maxmag))
     n = len(nbps)
     hs = np.full(n, BLOCK, dtype=np.int32)
     bandnames = [BAND] * n
@@ -214,7 +226,7 @@ def encode_tensor(arr, planes: int | None = None,
     """
     # The limb rows are made on the host: a tensor on the card comes
     # over once.
-    arr = (arr.detach().cpu() if isinstance(arr, torch.Tensor)
+    arr = (_planes.fetch_tensor(arr) if isinstance(arr, torch.Tensor)
            else np.asarray(arr))
     spec = _planes.spec_for(arr.dtype)
     t_wall = time.perf_counter()

@@ -217,8 +217,13 @@ class BandSlice:
     def materialize(self):
         return self.parent[self.index]
 
+    def to_host(self) -> np.ndarray:
+        """The row as a host numpy array: the slice's device-to-host
+        seam."""
+        return self.materialize().cpu().numpy()
+
     def __array__(self, dtype=None, copy=None):
-        arr = self.materialize().cpu().numpy()
+        arr = self.to_host()
         return arr if dtype is None else arr.astype(dtype)
 
 

@@ -103,6 +103,13 @@ def spec_by_code(code: int) -> DtypeSpec:
     return spec
 
 
+def fetch_tensor(x: torch.Tensor) -> torch.Tensor:
+    """A caller's tensor on any device as a CPU tensor: the tensor
+    codec's device-to-host seam for its input (a tensor on the card
+    comes over once). Sanctioned in rules_torch.D2H_SANCTIONED."""
+    return x.detach().cpu()
+
+
 def _host_array(x) -> tuple:
     """``x`` (a numpy array, a torch tensor on any device, or anything
     ``np.asarray`` takes) as (host numpy array, DtypeSpec). bfloat16
@@ -110,7 +117,7 @@ def _host_array(x) -> tuple:
     itself."""
     if isinstance(x, torch.Tensor):
         spec = spec_for(x.dtype)
-        x = x.detach().cpu().contiguous()
+        x = fetch_tensor(x).contiguous()
         if spec.name == "bfloat16":
             return x.view(torch.int16).numpy().view(np.uint16), spec
         return x.numpy(), spec

@@ -166,13 +166,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    bucketeer_tpu_torch.analysis --strict --race (8 interleavings per
    default scenario) in a process of its own: lint clean, and no race,
    lock cycle, deadlock, broken invariant or divergence;
-13. one JSON line with every kernel, then the card line and the result
+13. the device audit, in a child process started with
+   BUCKETEER_CONTRACTS=1 (the codec entry points check their argument
+   shapes and dtypes): python -m bucketeer_tpu_torch.analysis --strict
+   --audit --audit-device cuda in-process (the lint, then every
+   registered device program, the hand-written kernels included, under
+   the dispatch recorder); then audit_call around the default encode_jp2
+   of phase 5's 4096x4096 image at the Kakadu recipe (lossless, the
+   fused kernel) and around one cold tile read through CudaReader, each
+   printed with its host syncs and device-to-host copies (count, bytes
+   and wall seconds: a copy from the card blocks the host until the
+   card reaches it) by package function and its float64 outputs; gates: no
+   float64, no sync or copy outside the sanctioned list, the encode's
+   bytes equal to phase 5's lossless fused file, the read equal to the
+   source, and at most one build of each library in this process and
+   in the child (the build sentinel's counts are printed);
+14. one JSON line with every kernel, then the card line and the result
    line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import multiprocessing
 import os
@@ -3362,13 +3379,166 @@ def phase_defaults(img) -> dict:
                        for name in launched}}
 
 
+# --- phase 13: the device audit -------------------------------------------
+
+AUDIT_TILE = (1024, 1536, 512, 512)      # the cold read: phase 6's tile
+
+
+def _by_function(facts) -> str:
+    syncs = facts.by_function("syncs")
+    sync_s = facts.by_function("sync_seconds")
+    copies = facts.by_function("copies")
+    nbytes = facts.by_function("copy_bytes")
+    copy_s = facts.by_function("copy_seconds")
+    parts = [f"host syncs {sum(syncs.values())} "
+             f"({sum(sync_s.values()):.6f} s)"
+             + "".join(f"; {k} {v} ({sync_s[k]:.6f} s)"
+                       for k, v in syncs.items()),
+             f"blocking device-to-host copies {sum(copies.values())} "
+             f"({sum(nbytes.values())} B, {sum(copy_s.values()):.6f} s)"
+             + "".join(f"; {k} {v} ({nbytes[k]} B, {copy_s[k]:.6f} s)"
+                       for k, v in copies.items()),
+             f"float64 outputs {sum(facts.f64.values())}"]
+    return (f"{facts.ops} aten ops in {facts.seconds:.3f} s on "
+            f"{len(facts.threads)} thread(s) {sorted(facts.threads)} "
+            f"({facts.pool_tasks} pool task(s)); " + "; ".join(parts))
+
+
+def _summary(facts) -> dict:
+    return {"ops": facts.ops, "seconds": facts.seconds,
+            "syncs": facts.by_function("syncs"),
+            "sync_seconds": facts.by_function("sync_seconds"),
+            "copies": facts.by_function("copies"),
+            "copy_bytes": facts.by_function("copy_bytes"),
+            "copy_seconds": facts.by_function("copy_seconds"),
+            "f64": sum(facts.f64.values()),
+            "threads": sorted(facts.threads)}
+
+
+def audit_child(cfg: dict) -> None:
+    """Phase 13's child process (started with BUCKETEER_CONTRACTS=1):
+    the registry audit on the card, then the audited encode and read.
+    Prints its lines, then one JSON line for the parent."""
+    from bucketeer_tpu_torch.analysis import deviceaudit, retrace
+    from bucketeer_tpu_torch.analysis.__main__ import main as lint_main
+    from bucketeer_tpu_torch.codec import encoder, tiff
+    from bucketeer_tpu_torch.converters import (Conversion, CudaConverter,
+                                                CudaReader)
+
+    if not hasattr(encoder.encode_jp2, "__contract__"):
+        fail("audit: BUCKETEER_CONTRACTS=1 did not turn the contracts on")
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = lint_main(["--strict", "--audit", "--audit-device", "cuda"])
+    for line in out.getvalue().splitlines():
+        say(f"audit: {line}")
+    say(f"audit: lint and registry on the card: exit {rc} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if rc != 0:
+        fail(f"audit: the registry audit on the card exited {rc}")
+
+    img, bitdepth = tiff.read_image(cfg["src"])
+    h, w = img.shape[:2]
+    params = CudaConverter().encode_params(h, w, bitdepth,
+                                           Conversion.LOSSLESS)
+    data, enc = deviceaudit.audit_call(
+        encoder.encode_jp2, img, bitdepth, params, jpx=True,
+        device="cuda", audit_name="encode_jp2")
+    with open(cfg["ref"], "rb") as fh:
+        same = data == fh.read()
+    say(f"audit: encode_jp2 {w}x{h} RGB lossless (Kakadu recipe, default "
+        f"placement: the fused kernel), {len(data)} B, equal to phase 5's "
+        f"fused file: {same}: {_by_function(enc)}")
+    x, y, tw, th = AUDIT_TILE
+    reader = CudaReader(device="cuda")
+    tile, read = deviceaudit.audit_call(
+        reader.read, cfg["ref"], region=AUDIT_TILE, audit_device="cuda",
+        audit_name="CudaReader.read")
+    exact = np.array_equal(tile, img[y:y + th, x:x + tw])
+    say(f"audit: cold tile read {AUDIT_TILE} through CudaReader, "
+        f"{tile.shape} equal to the source: {exact}: {_by_function(read)}")
+    findings = (deviceaudit.check_program(enc)
+                + deviceaudit.check_program(read))
+    for f in findings:
+        say(f"audit: {f.render()}")
+    print(json.dumps({"audit_child": {
+        "encode": _summary(enc), "read": _summary(read),
+        "bytes_equal": same, "read_exact": exact,
+        "findings": [f.render() for f in findings],
+        "builds": retrace.snapshot()}}), flush=True)
+
+
+def phase_audit(main_res: dict, workdir: str, card: str) -> None:
+    """Phase 13: the child process, its gates, and the build sentinel's
+    counts of this process."""
+    from bucketeer_tpu_torch.analysis import retrace
+    from bucketeer_tpu_torch.converters import Conversion
+
+    ref = os.path.join(workdir, "audit-ref.jpx")
+    with open(ref, "wb") as fh:
+        fh.write(main_res["files"][Conversion.LOSSLESS])
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = {"src": main_res["src"], "ref": ref}
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--audit-child",
+             json.dumps(cfg)], cwd=root, capture_output=True, text=True,
+            timeout=300, env={**os.environ, "PYTHONPATH": root,
+                              "BUCKETEER_CONTRACTS": "1"})
+    except subprocess.TimeoutExpired:
+        fail("audit: the child did not finish in 300 s")
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith('{"audit_child"'):
+            print(line, flush=True)
+    if proc.returncode != 0:
+        fail(f"audit: child exit {proc.returncode}:\n{proc.stderr[-3000:]}")
+    res = json.loads(next(ln for ln in lines
+                          if ln.startswith('{"audit_child"')))["audit_child"]
+    mine = retrace.snapshot()
+    say(f"audit: build sentinel, this process: built {mine['built']}, "
+        f"loaded {mine['loaded']}; the audit child: built "
+        f"{res['builds']['built']}, loaded {res['builds']['loaded']} "
+        "(other worker processes are not counted)")
+    for label in ("encode", "read"):
+        r = res[label]
+        waits = (sum(r["sync_seconds"].values())
+                 + sum(r["copy_seconds"].values()))
+        say(f"audit: {label} on {card}: host syncs "
+            f"{sum(r['syncs'].values())}, blocking device-to-host copies "
+            f"{sum(r['copies'].values())} of "
+            f"{sum(r['copy_bytes'].values())} B, host waits in them "
+            f"{waits:.6f} s of the call's {r['seconds']:.6f} s "
+            f"(under the recorder), float64 outputs {r['f64']}")
+    if res["findings"] or res["encode"]["f64"] or res["read"]["f64"]:
+        fail(f"audit: {res['findings']}")
+    if not res["bytes_equal"]:
+        fail("audit: the audited encode's bytes differ from phase 5's")
+    if not res["read_exact"]:
+        fail("audit: the audited read differs from the source")
+    over = {name: n for counts in (mine["built"], res["builds"]["built"])
+            for name, n in counts.items() if n > 1}
+    if over:
+        fail(f"audit: a library was built more than once in a process: "
+             f"{over}")
+    say(f"phase 13 (the device audit) {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
+    ap.add_argument("--audit-child", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA device")
     import bucketeer_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    if args.audit_child is not None:
+        audit_child(json.loads(args.audit_child))
+        return
 
     t_start = time.perf_counter()
     card = phase_card()
@@ -3417,6 +3587,7 @@ def main() -> None:
         defaults = phase_defaults(img)
         say(f"phase 12 (the defaults and the analysis) "
             f"{time.perf_counter() - t12:.1f} s")
+        phase_audit(main_res, workdir, card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -128,3 +128,22 @@ def test_abi_missing_and_unbound_exports_are_reported(tmp_path):
     unbound = next(f for f in findings if f.rule == abi.UNBOUND_EXPORT)
     assert "coder_free" in unbound.message
     assert unbound.severity == "warning"
+
+
+def test_gate_runs_the_device_region_rules(monkeypatch):
+    """The strict gate covers rules_torch on the repo itself: with one
+    transfer seam taken off the sanctioned list, its copy is reported
+    where it stands; and every plain-version sync is a live, reasoned
+    suppression (a dead one would fail the strict gate as stale)."""
+    from bucketeer_tpu_torch.analysis import rules_torch
+
+    monkeypatch.setattr(rules_torch, "D2H_SANCTIONED",
+                        rules_torch.D2H_SANCTIONED - {"fetch_block_meta"})
+    findings = [f for f in lint.run_lint(PKG)
+                if f.rule == rules_torch.D2H]
+    assert [(f.path, "fetch_block_meta" in f.message) for f in findings] \
+        == [("bucketeer_tpu_torch/tensor/codec.py", True)]
+    suppressed = [ln for p in (PKG / "kernels").glob("*.py")
+                  for ln in p.read_text().splitlines()
+                  if "graftlint: disable=host-sync" in ln]
+    assert len(suppressed) == 8
