@@ -17,13 +17,23 @@
   codec entry points, on under tests or ``BUCKETEER_CONTRACTS=1``.
 - **Kernel-build sentinel** (:mod:`retrace`): native library compiles
   per library, on ``/metrics`` as ``retrace.<library>``.
+- **Cost model** (``--cost``, :mod:`graftcost`, rules in
+  :mod:`rules_perf`): each registered program's flops, device-memory
+  bytes and launches counted op by op on the dispatch recorder (a
+  hand-written kernel's declared by its wrapper's ``work()``), rooflined
+  on an ``h100`` or ``cpu`` model, with a checked-in manifest
+  (``.graftaudit-torch-manifest.json``) that ``--audit`` diffs.
+- **Mesh audit** (``--mesh-audit``, :mod:`graftmesh`, rules in
+  :mod:`rules_shard`): what the mesh programs copy between entries, read
+  at the copy seam of ``parallel/mesh.py``.
 - **Race explorer** (``--race``, :mod:`graftrace`): the serving core's
   scenario suite under a controlled scheduler — data races, lock
   inversions, deadlocks and broken invariants, each with a replayable
   schedule.
 
-The JAX package's donation rule, cost model and mesh audit read
-lowered programs, which eager PyTorch has none of; they are not here.
+The JAX package's donation rule has no eager counterpart (nothing is
+donated); its StableHLO and partitioned-HLO parsers have none either:
+the recorder and the copy seam take their place.
 """
 from .findings import ERROR, WARNING, Finding
 from .lint import load_baseline, run_lint

@@ -57,16 +57,38 @@ of the package that performs a transfer (``.cpu()``, ``.numpy()``,
 function; an entry that no longer does is reported stale
 (``stale-d2h-whitelist``).
 
+Each registered program's run also gives its **manifest entry**: a
+fingerprint (the sha256 of its dispatched op sequence — op names with
+their output shapes and dtypes), its op histogram, and its modeled cost
+(:mod:`graftcost`: flops, device-memory bytes, launches, peak live
+bytes; a hand-written kernel's cost is declared by its wrapper's
+``work()``, which the CPU computes from the plain version's outputs, so
+the manifest carries every program's cost on either device). Copies
+between the host and the card are transfers, not program work: they
+join neither the op sequence nor the cost. ``--audit`` diffs these
+against the checked-in ``.graftaudit-torch-manifest.json`` (written by
+``--write-manifest`` on the CPU); a modeled cost that moves beyond
+:data:`COST_DRIFT_TOLERANCE` fails with one actionable line. An entry
+whose ops differ on the card is kept in a section of its own for the
+card's device type (``"devices": {"cuda": {...}}``), written by
+``--write-manifest --audit-device cuda``, and the gate compares like
+with like. The header names the torch version of each section; eager op
+sequences are compared op by op, so a version change shows as drift of
+the programs it changed and is not a failure by itself.
+
 The JAX audit's donation checks have no eager counterpart (nothing is
-donated), and its checked-in manifest with cost fingerprints belongs
-with the cost model, which is not ported.
+donated).
 """
 from __future__ import annotations
 
 import ast
+import hashlib
+import json
+import re
 import sys
 import threading
 import time
+import weakref
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -79,6 +101,15 @@ HOST_TRANSFER = "audit-host-transfer"
 F64_IN_PROGRAM = "audit-f64"
 TOO_FEW = "audit-registry"
 STALE_D2H = "stale-d2h-whitelist"
+MANIFEST_DRIFT = "audit-manifest-drift"
+
+MANIFEST_NAME = ".graftaudit-torch-manifest.json"
+
+# Relative drift in a modeled cost field (flops / hbm_bytes / scan_depth
+# / peak_live_bytes / ici_bytes / launches) beyond which the manifest
+# gate fails — a change that silently doubles a program's modeled
+# traffic fails here, with no benchmark run. Small churn stays under it.
+COST_DRIFT_TOLERANCE = 0.10
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _THIS = str(Path(__file__).resolve())
@@ -166,6 +197,11 @@ class ProgramFacts:
     pool_tasks: int = 0
     skipped: str = ""
     seconds: float = 0.0
+    fingerprint: str = ""           # sha256 of the dispatched op sequence
+    op_counts: Counter = field(default_factory=Counter)   # op -> n
+    transfer_bytes: int = 0         # host <-> device copies, kept apart
+    cost: object = None             # graftcost.CostFacts
+    kernel: bool = False            # cost declared by a kernel's work()
 
     def by_function(self, kind: str) -> dict:
         """{"path:qualname": count} of syncs or copies (``kind``), of
@@ -196,11 +232,127 @@ def _tensors(tree) -> list:
     return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
 
 
+# Aten ops that copy between devices: with the host on one side and the
+# audited device on the other, a transfer rather than program work.
+_COPY_OPS = ("_to_copy", "copy", "_copy_from", "_copy_from_and_resize")
+# Ops that write their first argument without reading it.
+_WRITE_ONLY = ("copy", "fill", "zero")
+# Markers that run nothing: ``torch.as_tensor`` / ``torch.tensor`` of host
+# data lifts a fresh host tensor (on the card, a host op before the
+# transfer), so it is neither program work nor part of the sequence.
+_MARKERS = ("lift_fresh",)
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+class _Tally:
+    """The cost side of a record (graftcost's eager model): the op
+    sequence's hash and histogram, flops, device-memory bytes and
+    launches per op, and the storages alive at once. ``paused`` stops
+    the count while a hand-written kernel's wrapper runs; its cost is
+    declared instead (:func:`declared_call`)."""
+
+    def __init__(self, name: str, device_type: str) -> None:
+        from .graftcost import CostFacts
+
+        self.cost = CostFacts(name)
+        self.device_type = device_type
+        self.sha = hashlib.sha256()
+        self.counts: Counter = Counter()
+        self.transfer_bytes = 0
+        self.paused = 0
+        self.live = 0
+        self.peak = 0
+        self.inputs = 0
+        self.seen: dict = {}            # id(storage) -> bytes
+        # Finalizers may run on any thread, also inside observe().
+        self.lock = threading.RLock()
+
+    def _see_locked(self, t, produced: bool) -> None:
+        if t.device.type != self.device_type:
+            return
+        try:
+            st = t.untyped_storage()
+        except (RuntimeError, NotImplementedError):
+            return
+        key = id(st)
+        if key in self.seen:
+            return
+        n = st.nbytes()
+        self.seen[key] = n
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        if not produced:
+            self.inputs += n
+        weakref.finalize(st, self._free, key)
+
+    def _free(self, key) -> None:
+        with self.lock:
+            self.live -= self.seen.pop(key, 0)
+
+    def op(self, func, name: str, ins: list, outs: list) -> None:
+        from .graftcost import op_base, op_flops
+
+        dev = self.device_type
+        base = op_base(name)
+        if base in _MARKERS:
+            return
+        with self.lock:
+            if dev != "cpu" and base in _COPY_OPS:
+                kinds = {t.device.type for t in ins} | {
+                    t.device.type for t in outs}
+                if "cpu" in kinds and dev in kinds:
+                    self.transfer_bytes += sum(_nbytes(t) for t in outs)
+                    for t in outs:
+                        self._see_locked(t, True)
+                    return
+            if self.paused:
+                return
+            if not any(t.device.type == dev for t in ins + outs):
+                return              # host work during a card audit
+            for t in ins:
+                self._see_locked(t, False)
+            for t in outs:
+                self._see_locked(t, True)
+            self.sha.update(name.encode())
+            for t in outs:
+                self.sha.update(f"{tuple(t.shape)}{t.dtype}".encode())
+            self.counts[name] += 1
+            if getattr(func, "is_view", False):
+                return
+            reads = ins[1:] if base in _WRITE_ONLY else ins
+            cost = self.cost
+            cost.launches += 1
+            cost.hbm_bytes += (sum(_nbytes(t) for t in reads)
+                               + sum(_nbytes(t) for t in outs))
+            cost.flops += op_flops(base, reads, outs)
+
+    def declare(self, cost) -> None:
+        """Fold a hand-written kernel's declared work into the count."""
+        with self.lock:
+            self.peak = max(self.peak, self.live + cost.peak_live_bytes)
+            self.cost.add(cost)
+
+    def finish(self, out) -> object:
+        with self.lock:
+            cost = self.cost
+            cost.peak_live_bytes = self.peak
+            cost.input_bytes = self.inputs
+            cost.output_sizes = tuple(
+                _nbytes(t) for t in _tensors(out)
+                if t.device.type == self.device_type)
+            cost.output_bytes = sum(cost.output_sizes)
+            return cost
+
+
 class _Record:
     """The shared record of one audited run (every covered thread feeds
     it, under a lock)."""
 
-    def __init__(self, facts: ProgramFacts, device_type: str) -> None:
+    def __init__(self, facts: ProgramFacts, device_type: str,
+                 cost: bool = False) -> None:
         import torch
 
         self.facts = facts
@@ -208,6 +360,7 @@ class _Record:
         self.lock = threading.Lock()
         self._f64 = torch.float64
         self._names: dict = {}          # op overload -> (name, sync op)
+        self.tally = _Tally(facts.name, device_type) if cost else None
 
     def observe(self, func, args, kwargs, out, seconds: float) -> None:
         info = self._names.get(func)
@@ -244,6 +397,12 @@ class _Record:
                     if t.device.type == "cpu")
             if f64:
                 facts.f64[(name, site)] += 1
+        if self.tally is not None:
+            self.tally.op(func, name, _tensors((args, kwargs)), outs)
+
+
+# The records the calling thread's recorders feed, innermost last.
+_ACTIVE = threading.local()
 
 
 def _mode(record: _Record):
@@ -259,9 +418,46 @@ def _mode(record: _Record):
                            time.perf_counter() - t0)
             return out
 
+        def __enter__(self):
+            stack = getattr(_ACTIVE, "records", None)
+            if stack is None:
+                stack = _ACTIVE.records = []
+            stack.append(record)
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            _ACTIVE.records.pop()
+            return super().__exit__(*exc)
+
     with record.lock:
         record.facts.threads.add(threading.current_thread().name)
     return _Recorder()
+
+
+def declared_call(fn, work, L: int, frac: int, args):
+    """``fn(L, frac, *args)``, a hand-written kernel's wrapper, with its
+    cost declared by ``work(L, args, out)`` (a ctypes launch is not an
+    aten op): while it runs, the calling thread's record counts no op
+    cost, then the declared work joins it. The syncs and copies of the
+    wrapper are still judged. Without a recorder it is the plain call."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    stack = getattr(_ACTIVE, "records", None)
+    tally = stack[-1].tally if stack else None
+    if tally is None:
+        return fn(L, frac, *args)
+    with tally.lock:
+        for t in args:
+            tally._see_locked(t, False)
+        tally.paused += 1
+    try:
+        out = fn(L, frac, *args)
+    finally:
+        with tally.lock:
+            tally.paused -= 1
+    with _disable_current_modes():
+        tally.declare(work(L, args, out))
+    return out
 
 
 class _CoverPools:
@@ -320,23 +516,31 @@ _AUDIT_LOCK = threading.RLock()
 
 
 def audit_call(fn, *args, audit_name: str | None = None,
-               audit_device=None, **kwargs):
+               audit_device=None, audit_cost: bool = False, **kwargs):
     """Run ``fn(*args, **kwargs)`` under the recorder; returns
     (result, ProgramFacts). ``audit_device`` names the device whose
     syncs and copies count: by default the call's own ``device``
-    argument, else the card. Calls from several threads run one after
-    another."""
+    argument, else the card. ``audit_cost`` also models the call's cost
+    and fingerprints its op sequence (``facts.cost``,
+    ``facts.fingerprint``, ``facts.op_counts``). Calls from several
+    threads run one after another."""
     dtype = device_type(audit_device or kwargs.get("device", "cuda"))
     facts = ProgramFacts(audit_name
                          or getattr(fn, "__qualname__", str(fn)),
                          copies_counted=dtype != "cpu")
-    record = _Record(facts, dtype)
+    record = _Record(facts, dtype, cost=audit_cost)
     with _AUDIT_LOCK:
         t0 = time.perf_counter()
         with _CoverPools(record), _mode(record):
             out = fn(*args, **kwargs)
             _synchronize(dtype)
         facts.seconds = time.perf_counter() - t0
+    tally = record.tally
+    if tally is not None:
+        facts.cost = tally.finish(out)
+        facts.fingerprint = tally.sha.hexdigest()
+        facts.op_counts = tally.counts
+        facts.transfer_bytes = tally.transfer_bytes
     return out, facts
 
 
@@ -411,11 +615,22 @@ def registry() -> list:
     meta = [np.full(1, v, np.int32) for v in (2, 0, 0, 16, 16)]
 
     def t1_entry(prefix):
+        import importlib
+
         fn = _root(prefix)
+        # A kernel's wrapper declares its cost (the launch is not an aten
+        # op); the plain versions are counted op by op.
+        work = (getattr(importlib.import_module(fn.__module__), "work",
+                        None) if prefix.endswith(".pallas") else None)
 
         def build(device):
             args = [on(device, block)] + [on(device, m) for m in meta]
-            return lambda: fn(2, 0, *args)
+
+            def thunk():
+                return fn(2, 0, *args)
+            if work is not None:
+                thunk.work = lambda out: work(2, args, out)
+            return thunk
         return build
 
     entries += [
@@ -518,23 +733,213 @@ def registry() -> list:
     return entries
 
 
+def _declared(thunk, out, name: str):
+    """A kernel entry's declared cost: its wrapper's ``work()`` on the
+    output, computed outside any recorder."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        cost = thunk.work(out)
+    cost.name = name
+    return cost
+
+
 def run_program(entry: AuditProgram, device="cuda") -> ProgramFacts:
     """Run one registered program on ``device`` (the card unless the
-    caller asks for the CPU) under the recorder."""
+    caller asks for the CPU) under the recorder, its cost modeled. A
+    hand-written kernel runs on the card only: elsewhere it is reported
+    skipped, and its wrapper's declared work on the plain version's
+    outputs (equal to the kernel's) still gives its cost."""
     dtype = device_type(device)
-    if entry.card_only and dtype != "cuda":
-        return ProgramFacts(entry.name, skipped=(
-            "a hand-written CUDA kernel: it runs on the card only"))
     thunk = entry.build(device)
+    work = getattr(thunk, "work", None)
+    if entry.card_only and dtype != "cuda":
+        facts = ProgramFacts(entry.name, kernel=True, skipped=(
+            "a hand-written CUDA kernel: it runs on the card only"))
+        if work is not None:
+            facts.cost = _declared(thunk, thunk(), entry.name)
+        return facts
     _synchronize(dtype)
-    _, facts = audit_call(thunk, audit_name=entry.name,
-                          audit_device=device)
+    out, facts = audit_call(thunk, audit_name=entry.name,
+                            audit_device=device, audit_cost=True)
+    if work is not None:
+        facts.kernel = True
+        facts.cost = _declared(thunk, out, entry.name)
     return facts
 
 
 def run_programs(device="cuda") -> list:
-    """Run every registered program; returns [ProgramFacts]."""
+    """Run every registered program; returns [ProgramFacts]. The Tier-1
+    lookup tables (built once per device, on first use) are built first,
+    so no program's peak live bytes depend on what ran before it in the
+    process."""
+    import torch
+
+    from ..kernels.cxd_scan import tables
+
+    device_type(device)
+    tables(torch.empty(0, device=device).device)
     return [run_program(e, device) for e in registry()]
+
+
+# --- manifest -------------------------------------------------------------
+
+def manifest_entry(facts: ProgramFacts) -> dict | None:
+    """One program's manifest record: the fingerprint of its op
+    sequence, its op histogram and its cost — or, for a hand-written
+    kernel, its declared cost alone (the ops the recorder sees there are
+    the wrapper's bookkeeping, not the kernel). None when nothing is
+    known."""
+    if facts.kernel:
+        if facts.cost is None:
+            return None
+        return {"kernel": True, "cost": facts.cost.manifest_entry()}
+    if facts.skipped:
+        return None
+    entry = {"fingerprint": facts.fingerprint,
+             "n_ops": sum(facts.op_counts.values()),
+             "op_counts": dict(sorted(facts.op_counts.items()))}
+    if facts.cost is not None:
+        entry["cost"] = facts.cost.manifest_entry()
+    return entry
+
+
+def manifest_from_facts(all_facts: list) -> dict:
+    import torch
+
+    programs = {}
+    for f in all_facts:
+        entry = manifest_entry(f)
+        if entry is not None:
+            programs[f.name] = entry
+    return {"torch": torch.__version__, "programs": programs}
+
+
+def load_manifest(path) -> dict | None:
+    try:
+        return json.loads(Path(path).read_text(encoding="utf-8"))
+    except (OSError, json.JSONDecodeError):
+        return None
+
+
+def write_manifest(path, manifest: dict) -> None:
+    Path(path).write_text(json.dumps(manifest, indent=2) + "\n",
+                          encoding="utf-8")
+
+
+def section(manifest: dict | None, device: str, key: str = "programs"):
+    """(entries, torch version) of ``manifest``'s ``key`` section as a
+    device type sees it: the CPU run's entries with the device type's
+    own entries (``"devices": {type: {key: ...}}``) in their place.
+    (None, None) when the manifest has no such section."""
+    if manifest is None or key not in manifest:
+        return None, None
+    entries = dict(manifest[key])
+    version = manifest.get("torch")
+    own = manifest.get("devices", {}).get(device)
+    if own is not None:
+        entries.update(own.get(key, {}))
+        version = own.get("torch", version)
+    return entries, version
+
+
+def merge_manifest(old: dict | None, new: dict, device: str,
+                   keys=("programs",)) -> dict:
+    """The manifest to write after a run on ``device``: a CPU run
+    replaces the ``keys`` sections (the rest is carried over); a run on
+    another device type keeps the CPU sections and records, in that
+    type's own section, only the entries whose ops differ from them
+    (another fingerprint or collective histogram) or whose modeled cost
+    moves beyond the tolerance."""
+    out = json.loads(json.dumps(old)) if old else {}
+    if device == "cpu" or not out:
+        out["torch"] = new["torch"]
+        for key in keys:
+            out[key] = new[key]
+        return out
+    own = out.setdefault("devices", {}).setdefault(device, {})
+    own["torch"] = new["torch"]
+    for key in keys:
+        base = out.get(key, {})
+        own[key] = {name: e for name, e in new[key].items()
+                    if _differs(base.get(name), e)}
+    return out
+
+
+def _differs(old: dict | None, new: dict) -> bool:
+    if old is None:
+        return True
+    return (old.get("fingerprint") != new.get("fingerprint")
+            or old.get("collectives") != new.get("collectives")
+            or bool(_cost_drift(old.get("cost", {}), new.get("cost", {}))))
+
+
+def _cost_drift(old_cost: dict, new_cost: dict) -> list:
+    """Per-field relative drifts beyond COST_DRIFT_TOLERANCE, as
+    rendered fragments ("hbm_bytes 1.2e6 -> 2.6e6 (+117%)")."""
+    frags = []
+    for key in ("flops", "hbm_bytes", "scan_depth", "peak_live_bytes",
+                "ici_bytes", "launches"):
+        a, b = old_cost.get(key), new_cost.get(key)
+        if a is None or b is None or a == b:
+            continue
+        rel = (b - a) / max(abs(a), 1)
+        if abs(rel) > COST_DRIFT_TOLERANCE:
+            frags.append(f"{key} {a:g} -> {b:g} ({rel:+.0%})")
+    return frags
+
+
+def diff_manifest(old: dict | None, new: dict, skipped=(),
+                  device: str = "cpu") -> list:
+    """Human-readable drift lines between the checked-in manifest (as
+    ``device``'s type sees it, :func:`section`) and a fresh run (empty =
+    no drift). Programs named in ``skipped`` are tolerated missing;
+    everything else — fingerprint changes, op-count deltas, added or
+    removed programs, and modeled cost beyond COST_DRIFT_TOLERANCE —
+    is drift. A modeled-cost drift is reported as what got more
+    expensive and by how much, one line per program; a hand-written
+    kernel's entry is its declared cost alone."""
+    olds, version = section(old, device)
+    if olds is None:
+        return [f"no checked-in manifest: {len(new['programs'])} "
+                "program(s) unaccounted — regenerate with "
+                "--write-manifest and commit it"]
+    note = ("" if version == new.get("torch") else
+            f" (the manifest was written under torch {version}, this "
+            f"run is torch {new.get('torch')})")
+    lines = []
+    news = new["programs"]
+    for name in sorted(set(olds) - set(news) - set(skipped)):
+        lines.append(f"{name}: in the manifest but no longer run "
+                     "(registry entry removed?)")
+    for name in sorted(set(news) - set(olds)):
+        lines.append(f"{name}: run but absent from the manifest (new "
+                     "program — regenerate the manifest)")
+    for name in sorted(set(news) & set(olds)):
+        o, n = olds[name], news[name]
+        cost_frags = _cost_drift(o.get("cost", {}), n.get("cost", {}))
+        if cost_frags:
+            lines.append(
+                f"{name}: modeled cost drifted beyond "
+                f"{COST_DRIFT_TOLERANCE:.0%} ({'; '.join(cost_frags)})"
+                " — a perf-relevant program change; if intentional, "
+                "regenerate with --write-manifest and justify the new "
+                "cost in review")
+            continue
+        if o.get("fingerprint") == n.get("fingerprint"):
+            continue
+        deltas = []
+        oc, nc = o.get("op_counts", {}), n.get("op_counts", {})
+        for op in sorted(set(oc) | set(nc)):
+            a, b = oc.get(op, 0), nc.get(op, 0)
+            if a != b:
+                deltas.append(f"{op} {a}->{b}")
+        detail = ("; ".join(deltas[:8]) if deltas
+                  else "same op counts, different order or shapes")
+        lines.append(f"{name}: dispatched program drifted "
+                     f"({o.get('n_ops')} -> {n.get('n_ops')} ops: "
+                     f"{detail}; modeled cost within tolerance){note}")
+    return lines
 
 
 # --- judging --------------------------------------------------------------
@@ -689,12 +1094,17 @@ def validate_d2h_whitelist(project) -> list:
 
 # --- the full audit ------------------------------------------------------
 
-def run_audit(device="cuda", package_root=None):
-    """Run every registered program on ``device``, judge each, and
-    validate the d2h whitelist. Returns (findings, facts)."""
+def run_audit(device="cuda", package_root=None, manifest_path=None,
+              facts=None, dump_dir=None):
+    """Run every registered program on ``device``, judge each, validate
+    the d2h whitelist and, with ``manifest_path``, diff the manifest.
+    Returns (findings, facts). ``facts`` takes a precomputed
+    ``run_programs()`` result, so a CLI run combining ``--audit`` with
+    ``--cost`` runs the registry once. On any finding with ``dump_dir``
+    set, each program's op histogram is written there."""
     from .lint import load_project
 
-    all_facts = run_programs(device)
+    all_facts = run_programs(device) if facts is None else facts
     findings = []
     for f in all_facts:
         findings += check_program(f)
@@ -705,6 +1115,32 @@ def run_audit(device="cuda", package_root=None):
             f"only {len(ran)} program(s) ran — the audit needs the "
             "registry to cover the device programs (skipped: "
             f"{[f.name for f in all_facts if f.skipped]})", ERROR))
+    if manifest_path is not None:
+        for line in diff_manifest(
+                load_manifest(manifest_path),
+                manifest_from_facts(all_facts),
+                skipped=tuple(f.name for f in all_facts
+                              if manifest_entry(f) is None),
+                device=device_type(device)):
+            findings.append(Finding(MANIFEST_DRIFT, str(manifest_path), 0,
+                                    line, ERROR))
     if package_root is not None:
         findings += validate_d2h_whitelist(load_project(Path(package_root)))
+    if findings and dump_dir:
+        dump_ops(dump_dir, all_facts)
     return findings, all_facts
+
+
+def dump_ops(dump_dir, all_facts: list) -> None:
+    """Write each program's op histogram and fingerprint to
+    ``dump_dir`` (the counterpart of the JAX audit's lowered-text
+    dumps)."""
+    dump = Path(dump_dir)
+    dump.mkdir(parents=True, exist_ok=True)
+    for f in all_facts:
+        safe = re.sub(r"[^\w.\-]", "_", f.name)
+        (dump / f"{safe}.ops.json").write_text(json.dumps({
+            "name": f.name, "fingerprint": f.fingerprint,
+            "op_counts": dict(sorted(f.op_counts.items())),
+            "cost": (f.cost.manifest_entry() if f.cost is not None
+                     else None)}, indent=2) + "\n", encoding="utf-8")

@@ -28,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..analysis import graftcost
 from ..kernels.cxd_scan import cxd_scan
 from ..kernels.fused_t1 import (CBLK, MQ_ROW_BYTES, fused_t1, max_syms,
                                 mq_capacity)
@@ -98,8 +99,13 @@ def _group_launches(blocks_dev: torch.Tensor, nbps, floors, bandnames,
     """Iterate one chunk's Mb-clamped launch groups: yields (L, idxs,
     kernel args on the blocks' device)."""
     dev = blocks_dev.device
-    groups, _ = _eff_groups(nbps, floors)
+    groups, eff = _eff_groups(nbps, floors)
     for L, idxs in groups:
+        # Workload-shape seams (analysis/graftcost.py): a group launches
+        # its own blocks, unpadded, and codes its deepest block's planes
+        # out of the plane budget L.
+        graftcost.record_bucket("cxd.blocks", len(idxs), len(idxs))
+        graftcost.record_bucket("cxd.planes", int(eff[idxs].max()), L)
         meta = _group_meta(idxs, nbps, floors, bandnames, hs, ws)
         sel = torch.as_tensor(idxs, device=dev)
         args = (blocks_dev.index_select(0, sel),) + tuple(

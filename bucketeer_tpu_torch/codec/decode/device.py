@@ -32,6 +32,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ...analysis import graftcost
 from ...analysis.contracts import contract
 from ..dwt import _along_rows, _inv53_last, dwt2d_inverse
 from ..pipeline import _band_geometry
@@ -155,6 +156,8 @@ def run_inverse(plan: InversePlan, hvals: np.ndarray,
         raise ValueError(f"run_inverse: hvals of shape {hvals.shape} do "
                          f"not fit the plan's (B, {plan.n_comps}, "
                          f"{plan.tile_h}, {plan.tile_w})")
+    # Workload-shape seam (analysis/graftcost.py): no pow-2 padding.
+    graftcost.record_bucket("decode.batch", hvals.shape[0], hvals.shape[0])
     return _device_inverse(plan, hvals, device).cpu().numpy()
 
 

@@ -28,6 +28,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..analysis import graftcost
 from ..analysis.contracts import contract
 from .pipeline import TilePlan, _step_map, _transform_batch
 from .quant import FRAC_BITS
@@ -294,6 +295,10 @@ def dispatch_frontend(plan: TilePlan, tiles: np.ndarray, mode: str = "rows",
         tiles = tiles.astype(np.int32)   # torch has no uint16 arithmetic
     layout = layout_for(plan)
     frac_bits = 0 if plan.lossless else FRAC_BITS
+    # Workload-shape seam (analysis/graftcost.py): the port launches the
+    # batch as it comes, with no pow-2 padding.
+    graftcost.record_bucket("frontend.batch", tiles.shape[0],
+                            tiles.shape[0])
     step_map = (None if plan.lossless else
                 torch.as_tensor(_step_map(plan), device=device))
     staged = torch.as_tensor(np.ascontiguousarray(tiles), device=device)

@@ -18,6 +18,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..analysis import graftcost
 from ..analysis.contracts import contract
 from .dwt import dwt2d_forward, synthesis_gains
 from .quant import (FRAC_BITS, SubbandQuant, quantize_fp,
@@ -184,6 +185,9 @@ def run_tiles(plan: TilePlan, tiles: np.ndarray,
     returns (B, C, h, w) int32 on the host."""
     if tiles.ndim == 3:
         tiles = tiles[..., None]
+    # Workload-shape seam (analysis/graftcost.py): no pow-2 padding.
+    graftcost.record_bucket("transform.batch", tiles.shape[0],
+                            tiles.shape[0])
     step_map = (None if plan.lossless else
                 torch.as_tensor(_step_map(plan), device=device))
     staged = torch.as_tensor(np.ascontiguousarray(_stageable(tiles)),

@@ -44,8 +44,10 @@ Tier-1 capacity instead:
   (depth ``2*(n-k)``, at least 2). The split ``k`` comes
   from the bi-criteria throughput-vs-latency heuristic (minimize the
   pipeline period ``max(cA/k, cB/(n-k))`` first, latency
-  ``cA/k + cB/(n-k)`` second) over the stage costs this scheduler has
-  measured (:meth:`EncodeScheduler.stage_costs`); ``pipeline_split``
+  ``cA/k + cB/(n-k)`` second) over the cost model's stage costs on the
+  pool's device type (obs/cost.py ``modeled_stage_costs``, from the
+  checked-in manifest, as in the JAX package; the measured means stay a
+  report, :meth:`EncodeScheduler.stage_costs`); ``pipeline_split``
   overrides the mapper.
 - **Shared host Tier-1** — the split's MQ replay and the host Tier-1
   of mode ``"rows"`` run on one pool (``pool_size`` workers), with
@@ -71,10 +73,14 @@ device launch), counters ``<kind>.admission_rejects``,
 ``{encode,tensor,batchread,t1}.device_launches`` plus the per-device
 ``....device_launches.d<N>`` split, ``<kind>.device_assigned.d<N>``,
 ``encode.batched_tiles``, ``tensor.batched_blocks``,
-``batchread.merged_images``, ``<kind>.deadline_expired``. Merged-launch
-spans carry the worker's ``device_id``. A ``sched`` reporter on the
-sink adds the per-device occupancy gauge (``sched.device_occupancy.d<N>``:
-busy fraction since the pool started) and the live device-queue depth.
+``batchread.merged_images``, ``<kind>.deadline_expired``,
+``encode.modeled_drift`` (measured / modeled seconds of each completed
+rows-mode front-end launch). Merged-launch spans carry the worker's
+``device_id`` and, for rows mode, ``modeled_s`` and ``modeled_from``
+(``<manifest entry>@<machine>``, the machine of the pool's device
+type). A ``sched`` reporter on the sink adds the per-device occupancy
+gauge (``sched.device_occupancy.d<N>``: busy fraction since the pool
+started) and the live device-queue depth.
 
 Every tuning value is a constructor or :meth:`EncodeScheduler.configure`
 argument; the JAX package's ``BUCKETEER_SCHED_*`` environment variables
@@ -99,6 +105,7 @@ import torch
 from .. import obs
 from ..analysis.graftrace import seam
 from ..codec.frontend import MODES
+from ..obs import cost as obs_cost
 from . import faults
 
 LOG = logging.getLogger(__name__)
@@ -995,10 +1002,11 @@ class EncodeScheduler:
         self._dq_cv.notify_all()
 
     def stage_costs(self):
-        """The pipeline mapper's stage costs: the mean host-clock seconds
-        of the completed front-end and fused Tier-1 launches this
-        scheduler has run, ``(front-end, Tier-1)``; None until both
-        stages have a sample."""
+        """The measured stage costs, a report beside the model the
+        pipeline mapper reads: the mean host-clock seconds of the
+        completed front-end and fused Tier-1 launches this scheduler has
+        run, ``(front-end, Tier-1)``; None until both stages have a
+        sample. Nothing decides by it."""
         with self._dq_cv:
             (fa, na), (fb, nb) = (self._stage_s["frontend"],
                                   self._stage_s["t1"])
@@ -1007,15 +1015,17 @@ class EncodeScheduler:
         return fa / na, fb / nb
 
     def _plan_split(self, n: int) -> int:
-        """The bi-criteria mapper: over k in [1, n-1], minimize the
-        pipeline period ``max(cA/k, cB/(n-k))`` first and the latency
-        ``cA/k + cB/(n-k)`` second, with :meth:`stage_costs` as cA
-        (front-end) and cB (fused Tier-1). ``pipeline_split``
-        overrides; an even split is the fallback before both stages
-        have been measured."""
+        """The bi-criteria mapper (PAPERS.md, arxiv 0801.1772): over k in
+        [1, n-1], minimize the pipeline period ``max(cA/k, cB/(n-k))``
+        first and the latency ``cA/k + cB/(n-k)`` second, with the cost
+        model's per-stage seconds on this pool's device type
+        (obs/cost.py ``modeled_stage_costs``) as cA (front-end) and cB
+        (fused Tier-1), as the JAX package's mapper reads its model.
+        ``pipeline_split`` overrides; an even split is the fallback when
+        there is no model."""
         if 1 <= self.pipeline_split <= n - 1:
             return self.pipeline_split
-        costs = self.stage_costs()
+        costs = obs_cost.modeled_stage_costs(self.device_type)
         if not costs:
             return max(1, n // 2)
         ca, cb = costs
@@ -1258,6 +1268,19 @@ class EncodeScheduler:
         n_tiles = sum(j.n_tiles for j in group)
         attrs = {"occupancy": len(group), "tiles": n_tiles,
                  "mode": lead.mode, "device_id": widx}
+        # The modeled cost beside the measured duration makes each launch
+        # a measured-vs-modeled drift sample; it feeds both the span and
+        # the sink's encode.modeled_drift, so compute it whenever either
+        # is live.
+        modeled = None
+        if (obs.installed() or self._sink is not None) \
+                and lead.mode == "rows":
+            modeled = obs_cost.modeled_launch_seconds(n_tiles,
+                                                      self.device_type)
+            if modeled is not None:
+                attrs["modeled_s"] = round(modeled[0], 6)
+                attrs["modeled_from"] = modeled[1]
+        took: list = []
         if self.launch_fn is not None:
             launch = self.launch_fn
         else:
@@ -1281,13 +1304,18 @@ class EncodeScheduler:
                         seam.write(j, "result")
                         j.result = _SlicedPending(merged, off, j.n_tiles)
                         off += j.n_tiles
-            self._add_stage_s("frontend", time.perf_counter() - t0)
+            took.append(time.perf_counter() - t0)
+            self._add_stage_s("frontend", took[0])
 
         def record(sink):
             sink.count("encode.device_launches")
             sink.count(f"encode.device_launches.d{widx}")
             sink.count("encode.batched_tiles", n_tiles)
             sink.observe("encode.batch_occupancy", len(group))
+            # Drift samples come from completed launches only: a launch
+            # that died early would read as faster than modeled.
+            if modeled is not None and modeled[0] > 0 and took:
+                sink.observe("encode.modeled_drift", took[0] / modeled[0])
 
         self._deliver(group, run, record)
 

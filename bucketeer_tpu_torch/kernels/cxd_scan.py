@@ -376,3 +376,42 @@ def cxd_scan(L: int, frac: int, blocks, nbps, floors, cls, hs, ws):
                         counts.data_ptr(), dh.data_ptr(), dl.data_ptr(),
                         cur.data_ptr()), dev)
     return buf, counts, dh, dl, cur
+
+
+def declared_work(name: str, L: int, hs, ws, cur, out_sizes: tuple):
+    """CostFacts of one Tier-1 launch over blocks of h x w extents with
+    per-block decision counts ``cur``: the extents and the 5 meta words
+    read once, ``out_sizes`` written once, one operation per decision,
+    and the longest block's decisions as the serial chain."""
+    from ..analysis.graftcost import CostFacts
+
+    n = hs.shape[0]
+    extent = (int((hs.to(torch.int64) * ws.to(torch.int64)).sum()) * 4
+              if n else 0)
+    decisions = int(cur.to(torch.int64).sum()) if n else 0
+    longest = int(cur.max()) if n else 0
+    bytes_in = extent + n * 5 * 4
+    bytes_out = sum(out_sizes)
+    return CostFacts(name, flops=decisions, hbm_bytes=bytes_in + bytes_out,
+                     scan_depth=longest, max_trip=longest,
+                     peak_live_bytes=bytes_in + bytes_out,
+                     input_bytes=bytes_in, output_bytes=bytes_out,
+                     output_sizes=tuple(out_sizes), launches=int(n > 0))
+
+
+def work(L: int, args, out):
+    """The least work of one launch, as ``analysis.graftcost.CostFacts``
+    (the wrapper declares it: a ctypes launch is invisible to the
+    dispatch recorder): the extents and meta read once; one byte per
+    symbol, the counts and distortion pairs and the cursors written
+    once; one operation per decision; the longest block's decisions as
+    the serial chain. ``args`` are the wrapper's (blocks, nbps, floors,
+    cls, hs, ws), ``out`` its five outputs; only hs, ws and the cursors
+    are read."""
+    hs, ws = args[4], args[5]
+    cur = out[4]
+    n = hs.shape[0]
+    syms = int(cur.to(torch.int64).sum()) if n else 0
+    return declared_work("cxd_scan", L, hs, ws, cur,
+                         (syms, n * L * 3 * 4, n * L * 3 * 4,
+                          n * L * 3 * 4, n * 4))

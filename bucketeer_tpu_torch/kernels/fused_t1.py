@@ -20,11 +20,12 @@ from __future__ import annotations
 import torch
 
 from .build import kernel_library, launch
-from .cxd_scan import CBLK, check_group, cxd_scan_plain, max_syms, tables
+from .cxd_scan import (CBLK, check_group, cxd_scan_plain, declared_work,
+                       max_syms, tables)
 from .mq_scan import MQ_ROW_BYTES, mq_capacity, mq_scan_plain
 
 __all__ = ["CBLK", "MQ_ROW_BYTES", "KERNEL", "fused_t1", "fused_t1_plain",
-           "max_syms", "mq_capacity", "tables"]
+           "max_syms", "mq_capacity", "tables", "work"]
 
 
 def fused_t1_plain(L: int, frac: int, blocks, nbps, floors, cls, hs, ws):
@@ -89,3 +90,23 @@ def fused_t1(L: int, frac: int, blocks, nbps, floors, cls, hs, ws):
                         curb.data_ptr()), dev)
     return (rows.reshape(-1, MQ_ROW_BYTES), snaps, dlen, dh, dl, cur,
             curb)
+
+
+def work(L: int, args, out):
+    """The least work of one launch, as ``analysis.graftcost.CostFacts``
+    (a ctypes launch is invisible to the dispatch recorder, so the
+    wrapper declares it): each input byte read once (a block's h x w
+    extent, not its 64x64 slot, and its 5 meta words), each meaningful
+    output byte written once (the coded bytes with the dummy pre-byte;
+    snaps, dh, dl; dlen and both cursors), one operation per coded
+    decision, and the decisions of the longest block as the serial
+    chain. ``args`` are the wrapper's (blocks, nbps, floors, cls, hs,
+    ws), ``out`` its seven outputs; only hs, ws, dlen and the symbol
+    cursors are read."""
+    hs, ws = args[4], args[5]
+    dlen, cur = out[2], out[5]
+    n = hs.shape[0]
+    coded = int((dlen.to(torch.int64) + 1).sum()) if n else 0
+    return declared_work("fused_t1", L, hs, ws, cur,
+                         (coded, n * L * 3 * 4, n * L * 3 * 4,
+                          n * L * 3 * 4, n * 4, n * 4, n * 4))

@@ -215,3 +215,28 @@ def launch_mq(L: int, cap: int, syms, counts, totals, flags, out) -> None:
     launch(KERNEL, (syms.data_ptr(), counts.data_ptr(), totals.data_ptr(),
                     flags.data_ptr(), tables(dev)["qe"].data_ptr(), n, L,
                     stride, cap, *(t.data_ptr() for t in out)), dev)
+
+
+def work(L: int, args, out):
+    """The least work of one launch, as ``analysis.graftcost.CostFacts``
+    (the wrapper declares it: a ctypes launch is invisible to the
+    dispatch recorder): one byte per symbol, the counts, totals and
+    flags read once; the coded bytes (with the dummy pre-byte), snaps,
+    lengths and cursors written once; one operation per decision; the
+    longest stream as the serial chain. ``args`` are the wrapper's
+    (syms, counts, totals, flags), ``out`` its four outputs; only the
+    totals and the lengths are read."""
+    from ..analysis.graftcost import CostFacts
+
+    totals, dlen = args[2], out[2]
+    n = totals.shape[0]
+    syms = int(totals.to(torch.int64).sum()) if n else 0
+    longest = int(totals.max()) if n else 0
+    ins = (syms, n * L * 3 * 4, n * 4, n * 4)
+    outs = ((int((dlen.to(torch.int64) + 1).sum()) if n else 0),
+            n * L * 3 * 4, n * 4, n * 4)
+    return CostFacts("mq_scan", flops=syms, hbm_bytes=sum(ins) + sum(outs),
+                     scan_depth=longest, max_trip=longest,
+                     peak_live_bytes=sum(ins) + sum(outs),
+                     input_bytes=sum(ins), output_bytes=sum(outs),
+                     output_sizes=outs, launches=int(n > 0))

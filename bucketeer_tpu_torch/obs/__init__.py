@@ -14,13 +14,14 @@ package's bucketeer_tpu/obs on plain ``threading``. Public surface:
   feeding breach counters and flight dumps.
 - :mod:`.logctx` — every log record gains ``request_id``.
 
-The JAX package's ``obs/cost`` (launch costs modeled from its XLA
-manifest) has no counterpart: the scheduler's pipeline mapper reads
-measured stage times instead (``EncodeScheduler.stage_costs``).
+- :mod:`.cost` — the cost model's launch cost for the merged-launch
+  span (``modeled_s`` / ``modeled_from``) and the stage costs the
+  scheduler's pipeline mapper reads, from the checked-in
+  ``.graftaudit-torch-manifest.json``.
 """
 from __future__ import annotations
 
-from . import export, flight, logctx, slo  # noqa: F401
+from . import cost, export, flight, logctx, slo  # noqa: F401
 from .slo import SloWatchdog  # noqa: F401
 from .trace import (Recorder, bind, current_context,  # noqa: F401
                     current_request_id, get_recorder, install,

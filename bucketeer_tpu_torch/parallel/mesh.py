@@ -20,6 +20,17 @@ tensor that way, :func:`replicated` copies it to every entry and
 :func:`unshard` puts the pieces back together. A copy between two cards
 goes peer to peer; a mesh may name one device more than once, and a
 piece whose entry is the device it lies on is not copied at all.
+
+Every copy between mesh entries passes one seam, :func:`record_copies`,
+which the mesh audit (analysis/graftmesh.py) reads: the kind
+(``split``, ``replicate``, ``gather``, or ``halo`` from the sharded
+DWT), the bytes, the source entry and the destination entry. It counts
+by mesh *entry*, not by device, so a mesh that repeats one device counts
+what that many cards would move, copies ``.to()`` skips included. A
+whole tensor lies on the first entry of its device, or on the host
+(:data:`HOST`) when no entry is its device; a list of shards lies on
+the entries of the axis it was split over, in order. Without a
+recorder the seam does nothing.
 """
 from __future__ import annotations
 
@@ -28,6 +39,40 @@ import torch
 
 DATA_AXIS = "data"
 TILE_AXIS = "tile"
+HOST = -1          # a copy's source or destination off the mesh
+
+_COPY_RECORDER = None   # set by the mesh audit while it runs a program
+
+
+def set_copy_recorder(recorder):
+    """Install ``recorder(kind, moves, axis)`` on the copy seam (None
+    removes it); returns the one it replaces."""
+    global _COPY_RECORDER
+    old, _COPY_RECORDER = _COPY_RECORDER, recorder
+    return old
+
+
+def record_copies(kind: str, moves, axis: str | None = None) -> None:
+    """The copy seam: one collective of ``kind`` as ``moves``, (bytes,
+    source entry, destination entry) each, entries being flat indices
+    into the mesh's ``device_list`` or :data:`HOST`; ``axis`` is the
+    mesh axis a split partitions."""
+    recorder = _COPY_RECORDER
+    if recorder is not None:
+        recorder(kind, list(moves), axis)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _entry_of(device, devices: list) -> int:
+    """The first of ``devices`` (a mesh's ``device_list``, or the
+    devices of a list of shards) that is ``device``; HOST if none."""
+    for i, d in enumerate(devices):
+        if d == device:
+            return i
+    return HOST
 
 
 class DeviceMesh:
@@ -100,35 +145,50 @@ def make_mesh(devices=None, tile_parallel: int = 1) -> DeviceMesh:
     return DeviceMesh(devices, n // tile_parallel, tile_parallel)
 
 
-def _split(x: torch.Tensor, dim: int, devices: list) -> list:
-    n = len(devices)
+def _split(x: torch.Tensor, dim: int, mesh: DeviceMesh, entries: list,
+           axis: str) -> list:
+    n = len(entries)
     if x.shape[dim] % n:
         raise ValueError(f"axis {dim} of {x.shape[dim]} does not split "
                          f"evenly over {n} devices")
-    return [part.to(dev) for part, dev in
-            zip(torch.chunk(x, n, dim=dim), devices)]
+    devices = mesh.device_list
+    parts = torch.chunk(x, n, dim=dim)
+    src = _entry_of(x.device, devices)
+    record_copies("split", [(_nbytes(p), src, e)
+                            for p, e in zip(parts, entries)], axis)
+    return [part.to(devices[e]) for part, e in zip(parts, entries)]
 
 
 def batch_sharding(x: torch.Tensor, mesh: DeviceMesh) -> list:
     """Split a (B, ...) batch along B over the data axis: piece i on the
     first device of data row i (tiles are independent — no
     communication follows)."""
-    return _split(x, 0, list(mesh.devices[:, 0]))
+    n_data, n_tile = mesh.devices.shape
+    return _split(x, 0, mesh, [i * n_tile for i in range(n_data)],
+                  DATA_AXIS)
 
 
 def row_sharding(x: torch.Tensor, mesh: DeviceMesh, dim: int = 0) -> list:
     """Split one giant tile's rows (axis ``dim``) over the tile axis:
     piece j on the tile axis's device j of the first data row."""
-    return _split(x, dim, list(mesh.devices[0, :]))
+    return _split(x, dim, mesh, list(range(mesh.devices.shape[1])),
+                  TILE_AXIS)
 
 
 def replicated(x: torch.Tensor, mesh: DeviceMesh) -> list:
     """One full copy of ``x`` on every device of the mesh."""
-    return [x.to(dev) for dev in mesh.device_list]
+    devices = mesh.device_list
+    src = _entry_of(x.device, devices)
+    record_copies("replicate", [(_nbytes(x), src, e)
+                                for e in range(len(devices))])
+    return [x.to(dev) for dev in devices]
 
 
 def unshard(shards: list, dim: int = 0, device=None) -> torch.Tensor:
     """Concatenate the pieces of a split along ``dim`` on ``device``
     (default: the first piece's)."""
-    device = shards[0].device if device is None else device
+    device = shards[0].device if device is None else torch.device(device)
+    dst = _entry_of(device, [s.device for s in shards])
+    record_copies("gather", [(_nbytes(s), i, dst)
+                             for i, s in enumerate(shards)])
     return torch.cat([s.to(device) for s in shards], dim=dim)

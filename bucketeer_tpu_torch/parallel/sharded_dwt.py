@@ -33,7 +33,8 @@ from ..codec.dwt import (ALPHA, BETA, DELTA, GAMMA, K_HI, K_LO,
                          _fwd53_last, _fwd97_last)
 from ..codec.pipeline import (_epilogue, _mallat, _prologue, _stageable,
                               _step_map)
-from .mesh import TILE_AXIS, DeviceMesh, row_sharding, unshard
+from .mesh import (TILE_AXIS, DeviceMesh, _nbytes, record_copies,
+                   row_sharding, unshard)
 
 HALO = 4  # covers the 4-step 9/7 lifting support
 
@@ -41,9 +42,16 @@ HALO = 4  # covers the 4-step 9/7 lifting support
 def _halo_pad(shards: list) -> list:
     """Pad each shard's local rows (..., Hs, W) with HALO rows from its
     row-neighbour shards, copied onto its device; the outer shards
-    reflect their own boundary (symmetric extension)."""
+    reflect their own boundary (symmetric extension). Each direction is
+    one ``halo`` collective on the mesh's copy seam (shard i on tile
+    entry i)."""
     out = []
     last = len(shards) - 1
+    halo = [_nbytes(x[..., :HALO, :]) for x in shards]
+    record_copies("halo", [(halo[i - 1], i - 1, i)
+                           for i in range(1, last + 1)])
+    record_copies("halo", [(halo[i + 1], i + 1, i)
+                           for i in range(last)])
     for i, x in enumerate(shards):
         if i == 0:
             up = torch.flip(x[..., 1:HALO + 1, :], dims=(-2,))

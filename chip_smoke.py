@@ -181,7 +181,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    bytes equal to phase 5's lossless fused file, the read equal to the
    source, and at most one build of each library in this process and
    in the child (the build sentinel's counts are printed);
-14. one JSON line with every kernel, then the card line and the result
+14. the cost model: (a) python -m bucketeer_tpu_torch.analysis --strict
+   --cost --audit-device cuda in-process: every one of the 17 registered
+   programs models; the hand-written kernels' declared work
+   (kernels/*.py ``work``) on the card's outputs equals the checked-in
+   CPU manifest's, and each torch-op program's flops, bytes and launches
+   are printed with their difference from it; (b) modeled against
+   measured on phase 3's lossless image group: each of fused_t1 and
+   cxd_scan's h100 roofline time, its bound and measured / modeled, and
+   the fused kernel's modeled ns per decision (graftcost
+   tier1_prediction) beside the measured serial chain's; (c) --mesh-audit
+   --strict --audit-device cuda (eight entries of the card), with each
+   mesh program's bytes per copy kind equal to the CPU manifest's; (d)
+   two merged rows-mode dispatches through an EncodeScheduler on the card
+   with tracing on: the launch span carries modeled_s > 0 and a
+   modeled_from of the h100 model, and the sink's encode.modeled_drift
+   is printed;
+15. one JSON line with every kernel, then the card line and the result
    line.
 """
 from __future__ import annotations
@@ -517,42 +533,42 @@ def _bound(n_bytes: int, n_ops: int) -> tuple:
             else "operations", n_bytes)
 
 
-def _extent_bytes(hs, ws) -> int:
-    return int((hs.to(torch.int64) * ws.to(torch.int64)).sum()) * 4
+def _bound_of(work) -> tuple:
+    """The bound of a launch from its wrapper's declared work
+    (kernels/*.py ``work``: the bytes it must move, one operation per
+    coded decision) — the count the cost model reads too."""
+    return _bound(work.hbm_bytes, work.flops)
 
 
 def fused_bound(L: int, hs, ws, dlen, cur) -> tuple:
     """Least time for one fused_t1 launch: each input byte read once (a
     block's h x w extent, not its 64x64 slot, and its 5 meta words) and
     each meaningful output byte written once at HBM rate, against one
-    32-bit operation per coded decision at the non-tensor peak. Returns
-    (ms, bound kind, bytes)."""
-    n = hs.shape[0]
-    bytes_in = _extent_bytes(hs, ws) + n * 5 * 4
-    bytes_out = (int((dlen.to(torch.int64) + 1).sum()) + n * L * 3 * 4 * 3
-                 + n * 3 * 4)
-    return _bound(bytes_in + bytes_out, int(cur.to(torch.int64).sum()))
+    32-bit operation per coded decision at the non-tensor peak
+    (kernels/fused_t1.py ``work``). Returns (ms, bound kind, bytes)."""
+    from bucketeer_tpu_torch.kernels import fused_t1 as ft
+
+    return _bound_of(ft.work(L, (None,) * 4 + (hs, ws),
+                             (None, None, dlen, None, None, cur, None)))
 
 
 def scan_bound(L: int, hs, ws, cur) -> tuple:
     """The same for one cxd_scan launch: the extents and meta in; one
     byte per symbol, the counts and distortion pairs and the cursor out;
-    one operation per decision."""
-    n = hs.shape[0]
-    syms = int(cur.to(torch.int64).sum())
-    return _bound(_extent_bytes(hs, ws) + n * 5 * 4
-                  + syms + n * L * 3 * 4 * 3 + n * 4, syms)
+    one operation per decision (kernels/cxd_scan.py ``work``)."""
+    from bucketeer_tpu_torch.kernels import cxd_scan as cs
+
+    return _bound_of(cs.work(L, (None,) * 4 + (hs, ws), (None,) * 4 + (cur,)))
 
 
 def mq_bound(L: int, cur, dlen) -> tuple:
     """The same for one mq_scan launch: one byte per symbol, the counts,
     totals and flags in; the coded bytes, snaps, lengths and cursors
-    out; one operation per decision."""
-    n = cur.shape[0]
-    syms = int(cur.to(torch.int64).sum())
-    return _bound(syms + n * L * 3 * 4 + n * 8
-                  + int((dlen.to(torch.int64) + 1).sum()) + n * L * 3 * 4
-                  + n * 8, syms)
+    out; one operation per decision (kernels/mq_scan.py ``work``)."""
+    from bucketeer_tpu_torch.kernels import mq_scan as ms
+
+    return _bound_of(ms.work(L, (None, None, cur, None),
+                             (None, None, dlen, None)))
 
 
 def time_kernel(fn, reps: int = 5) -> float:
@@ -961,7 +977,11 @@ def phase_kernel_vs_plain(rng, img) -> tuple:
                              [a.cuda() for a in sargs], plain.result()))
         worst["mq_scan"] = max(worst["mq_scan"], check_mq_stress(
             streams, {k: f.result() for k, f in mq_plains.items()}))
-    return worst, time_group("lossless", L, 0, args, res)
+    # What phase 14's model needs of the group: its extents and the
+    # kernels' lengths and cursors, not the blocks or the coded bytes.
+    group = (L, args[4], args[5], res["fused"][2], res["fused"][5],
+             res["scan"][4])
+    return worst, time_group("lossless", L, 0, args, res), group
 
 
 def device_kernel_ms(fn, reps: int = 1000) -> tuple:
@@ -3526,6 +3546,183 @@ def phase_audit(main_res: dict, workdir: str, card: str) -> None:
     say(f"phase 13 (the device audit) {time.perf_counter() - t0:.1f} s")
 
 
+# --- phase 14: the cost model --------------------------------------------
+
+
+def _lint(argv: list, label: str) -> int:
+    """The analysis CLI in this process, its lines printed under
+    ``label``; returns its exit code."""
+    from bucketeer_tpu_torch.analysis.__main__ import main as lint_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = lint_main(argv)
+    for line in out.getvalue().splitlines():
+        say(f"{label}: {line}")
+    return rc
+
+
+def _rel(got, want) -> str:
+    return f"{(got - want) / max(abs(want), 1):+.3%}"
+
+
+def phase_cost(img, group, timing) -> None:
+    """Phase 14: (a) the cost of the 17 registered programs on the card
+    against the CPU manifest, (b) the h100 model against phase 3's
+    measured kernel times, (c) the mesh audit on eight entries of the
+    card against the CPU manifest's bytes per copy kind, (d) the launch
+    span's modeled cost through a scheduler on the card."""
+    from bucketeer_tpu_torch import obs
+    from bucketeer_tpu_torch.analysis import deviceaudit, graftcost, graftmesh
+    from bucketeer_tpu_torch.codec.encoder import EncodeParams
+    from bucketeer_tpu_torch.codec.pipeline import make_plan
+    from bucketeer_tpu_torch.engine.scheduler import EncodeScheduler
+    from bucketeer_tpu_torch.kernels import cxd_scan as cs, fused_t1 as ft
+    from bucketeer_tpu_torch.obs.trace import Recorder
+    from bucketeer_tpu_torch.server.metrics import Metrics
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    manifest = deviceaudit.load_manifest(
+        os.path.join(root, deviceaudit.MANIFEST_NAME))
+    if manifest is None:
+        fail("cost: no checked-in manifest")
+    cpu = manifest["programs"]
+
+    # (a)
+    tmp = tempfile.mkdtemp(prefix="chip-cost-")
+    report_path = os.path.join(tmp, "cost.json")
+    rc = _lint(["--strict", "--cost", "--audit-device", "cuda",
+                "--cost-report", report_path], "cost")
+    if rc != 0:
+        fail(f"cost: --cost --strict on the card exited {rc}")
+    with open(report_path) as fh:
+        report = json.load(fh)["programs"]
+    if len(report) != 17 or set(report) != set(cpu):
+        fail(f"cost: {len(report)} programs modeled on the card, not the "
+             f"manifest's 17: {sorted(set(cpu) ^ set(report))}")
+    for name, c in report.items():
+        ref = cpu[name]["cost"]
+        if cpu[name].get("kernel"):
+            same = {k: c[k] for k in ref} == ref
+            say(f"cost: {name}: declared work of the kernel's outputs on "
+                f"the card: {c['flops']} decisions, {c['hbm_bytes']} B, "
+                f"chain {c['scan_depth']}; equal to the CPU manifest's: "
+                f"{same}")
+            if not same:
+                fail(f"cost: {name}'s declared work on the card {c} "
+                     f"differs from the CPU manifest's {ref}")
+        else:
+            say(f"cost: {name}: {c['flops']} flops "
+                f"({_rel(c['flops'], ref['flops'])} against the CPU "
+                f"manifest), {c['hbm_bytes']} B "
+                f"({_rel(c['hbm_bytes'], ref['hbm_bytes'])}), "
+                f"{c['launches']} launches "
+                f"({_rel(c['launches'], ref['launches'])}), peak live "
+                f"{c['peak_live_bytes']} B "
+                f"({_rel(c['peak_live_bytes'], ref['peak_live_bytes'])})")
+
+    # (b)
+    L, hs, ws, dlen, fcur, scur = group
+    h100 = graftcost.MACHINES["h100"]
+    works = {"fused_t1": ft.work(L, (None,) * 4 + (hs, ws),
+                                 (None, None, dlen, None, None, fcur, None)),
+             "cxd_scan": cs.work(L, (None,) * 4 + (hs, ws),
+                                 (None,) * 4 + (scur,))}
+    for name, w in works.items():
+        roof = w.roofline(h100)
+        modeled_ms = roof["time_s"] * 1e3
+        measured = timing[name]["ms"]
+        chain_ns = timing[name]["chain_ms"] * 1e6 / max(w.scan_depth, 1)
+        say(f"model: {name} lossless L={L} {hs.shape[0]} blocks: h100 "
+            f"roofline {modeled_ms:.4f} ms, {roof['bound']}-bound "
+            f"({w.hbm_bytes} B, {w.flops} decisions, chain "
+            f"{w.scan_depth}, {w.launches} launch; bound by bytes or "
+            f"operations alone {_bound_of(w)[0]:.6f} ms), measured "
+            f"{measured:.4f} ms (phase 3), measured / modeled "
+            f"{measured / modeled_ms:.3f}; serial chain measured "
+            f"{chain_ns:.1f} ns per decision against the model's "
+            f"{h100.seq_step_s * 1e9:.1f}")
+        if not (modeled_ms > 0 and np.isfinite(measured / modeled_ms)):
+            fail(f"model: {name} has no finite modeled time")
+    pred = graftcost.tier1_prediction("cuda")
+    if set(pred) != set(graftcost.MACHINES):
+        fail(f"model: tier1_prediction gave {pred}")
+    say("model: tier1_prediction (the registry's fused kernel entry, one "
+        "block at L=2): " + "; ".join(
+            f"{m} {p['ns_per_decision']:.1f} ns per decision, "
+            f"{p['symbols_per_s']:.4g} decisions/s"
+            for m, p in pred.items())
+        + f"; measured fused_t1 serial chain "
+        f"{timing['fused_t1']['chain_ms'] * 1e6 / max(works['fused_t1'].scan_depth, 1):.1f}"
+        " ns per decision (phase 3)")
+
+    # (c)
+    rc = _lint(["--strict", "--mesh-audit", "--audit-device", "cuda"],
+               "mesh")
+    if rc != 0:
+        fail(f"mesh: --mesh-audit --strict on the card exited {rc}")
+    card_mesh = graftmesh.run_mesh_programs("cuda")
+    ref_mesh = manifest[graftmesh.MESH_MANIFEST_KEY]
+    for f in card_mesh:
+        got = {k: {x: c[x] for x in ("count", "bytes_in", "ici_bytes",
+                                     "h2d_bytes", "d2h_bytes")}
+               for k, c in f.collectives.items()}
+        want = ref_mesh[f.name]["collectives"]
+        say(f"mesh: {f.name} on 8 entries of the card: {got or 'nothing'} "
+            f"crosses between entries; equal to the CPU's: {got == want}")
+        if got != want:
+            fail(f"mesh: {f.name} moves {got} on the card, the CPU "
+                 f"manifest {want}")
+
+    # (d)
+    t = MERGE_TILE
+    params = EncodeParams.kakadu_recipe(lossless=True)
+    plan = make_plan(t, t, 3, 5, True, 8, params.base_delta, use_mct=True)
+    tiles = [np.ascontiguousarray(img[0:t, i * t:(i + 1) * t])[None]
+             for i in range(2)]
+    sink = Metrics()
+    prev = obs.get_recorder()
+    rec = Recorder()
+    obs.install(rec)
+    sched = EncodeScheduler(device="cuda", window_s=MERGE_WINDOW_S,
+                            max_concurrent=4)
+    sched.set_metrics_sink(sink)
+    both_admitted = threading.Barrier(2)
+
+    def request(i):
+        def body():
+            both_admitted.wait(timeout=60)
+            return sched.dispatch_frontend(plan, tiles[i], mode="rows")
+        return sched.submit(body)
+
+    try:
+        outs, _ = _run_threads([lambda i=i: request(i) for i in (0, 1)],
+                               "modeled pair")
+        for o in outs:
+            o.resolve_stats()
+    finally:
+        sched.close()
+        obs.install(prev)
+    launches = [sp for sp in rec.snapshot() if sp["name"] == "device.launch"]
+    merged = [sp for sp in launches if sp["attrs"]["occupancy"] == 2]
+    drift = sink.report()["values"].get("encode.modeled_drift")
+    if len(merged) != 1:
+        fail(f"modeled: {len(launches)} launch span(s), none merged")
+    attrs = merged[0]["attrs"]
+    say(f"modeled: merged rows launch of {attrs['tiles']} tiles on the "
+        f"card: modeled_s {attrs.get('modeled_s')} from "
+        f"{attrs.get('modeled_from')}, measured span "
+        f"{merged[0]['dur']:.6f} s; encode.modeled_drift {drift}")
+    if not (attrs.get("modeled_s", 0) > 0
+            and str(attrs.get("modeled_from", "")).endswith("@h100")):
+        fail(f"modeled: the launch span carries {attrs}")
+    if not drift or not drift.get("count"):
+        fail("modeled: no encode.modeled_drift sample")
+    shutil.rmtree(tmp, ignore_errors=True)
+    say(f"phase 14 (the cost model) {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -3545,7 +3742,7 @@ def main() -> None:
     phase_build()
     rng = np.random.default_rng(args.seed)
     img = photo(rng, SIZE, SIZE)
-    worst, timing = phase_kernel_vs_plain(rng, img)
+    worst, timing, t1_group = phase_kernel_vs_plain(rng, img)
     probe = phase_probe()
     phase_parity(rng)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -3588,6 +3785,7 @@ def main() -> None:
         say(f"phase 12 (the defaults and the analysis) "
             f"{time.perf_counter() - t12:.1f} s")
         phase_audit(main_res, workdir, card)
+        phase_cost(img, t1_group, timing)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -3,7 +3,7 @@
 the machine (halos and shards copied peer to peer between cards), each
 against its single-device run; needs two cards or more.
 
-    python3 mesh_cards.py
+    python3 mesh_cards.py [--seam-only]
 
 (a) phase 5's 4096x4096 image as one tile, lossless, 6 levels, rows over
 every card, twice, each file equal to the single-device encode; the lossy
@@ -11,7 +11,15 @@ transform across the cards against run_tiles on cuda:0. (b) the 8192x8192
 TIFF of phase 11 through CudaConverter(), which routes it over every card,
 twice, equal to the unrouted convert. (c) a batch of one item per card at
 reduce 4, split one item per card and equal to the coefficient reads.
+(d) the mesh audit's copy seam (parallel/mesh.py) against what the cards
+really copy: the two DWT mesh programs of analysis/graftmesh.py (gray and
+RGB 256x64, 2 levels), rows split from cuda:0 over a 1xN mesh of distinct
+cards, then the sharded levels, then the low band gathered on cuda:0;
+for each kind (split, halo, gather) the seam's bytes between entries
+equal the bytes of the aten copies from one card to another that a
+dispatch mode records in the same window. --seam-only runs (d) alone.
 """
+import argparse
 import contextlib
 import os
 import tempfile
@@ -21,6 +29,75 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
+
+
+class CardCopies:
+    """A dispatch mode summing the output bytes of the copies whose
+    input lies on one card and output on another."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+        self.bytes = 0
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                name = func.name().split("::")[-1].split(".")[0]
+                if name in ("_to_copy", "copy_", "_copy_from"):
+                    ins = [a for a in args if isinstance(a, torch.Tensor)]
+                    src = ins[-1].device if ins else None
+                    if (isinstance(out, torch.Tensor) and src is not None
+                            and src.type == out.device.type == "cuda"
+                            and src != out.device):
+                        outer.bytes += out.numel() * out.element_size()
+                return out
+
+        self.mode = Mode()
+
+
+def seam_against_recorder(cards) -> None:
+    """(d): per kind, the copy seam's bytes between distinct entries
+    against the recorder's card-to-card copy bytes."""
+    from bucketeer_tpu_torch.parallel import mesh as mesh_mod
+    from bucketeer_tpu_torch.parallel.sharded_dwt import _local_dwt
+
+    n = len(cards)
+    mesh = mesh_mod.make_mesh(cards, tile_parallel=n)
+    rng = np.random.default_rng(0)
+    for label, shape in (("gray", (256, 64)), ("rgb", (3, 256, 64))):
+        x = torch.as_tensor(rng.integers(0, 256, shape).astype(np.int32),
+                            device=cards[0])
+        state = {}
+        steps = (
+            ("split", lambda: state.update(
+                shards=mesh_mod.row_sharding(x, mesh, dim=-2))),
+            ("halo", lambda: state.update(
+                out=_local_dwt(2, True, state["shards"]))),
+            ("gather", lambda: mesh_mod.unshard(state["out"][0], -2,
+                                                cards[0])))
+        for kind, step in steps:
+            seen = []
+            copies = CardCopies()
+            old = mesh_mod.set_copy_recorder(
+                lambda k, moves, axis: seen.append((k, moves)))
+            try:
+                with copies.mode:
+                    step()
+                torch.cuda.synchronize()
+            finally:
+                mesh_mod.set_copy_recorder(old)
+            seam = sum(b for k, moves in seen if k == kind
+                       for b, src, dst in moves
+                       if src != dst and mesh_mod.HOST not in (src, dst))
+            print(f"seam against recorder: {label} {kind} across {n} "
+                  f"cards: seam {seam} B between entries, recorder "
+                  f"{copies.bytes} B copied card to card; equal: "
+                  f"{seam == copies.bytes}", flush=True)
+            if seam != copies.bytes or not seam:
+                cs.fail(f"the copy seam's {kind} bytes ({seam}) differ "
+                        f"from the card-to-card copies ({copies.bytes})")
 
 
 class NoEvents(contextlib.nullcontext):
@@ -33,6 +110,11 @@ class NoEvents(contextlib.nullcontext):
 
 if __name__ == "__main__":
     import dataclasses
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seam-only", action="store_true",
+                    help="run check (d) alone")
+    seam_only = ap.parse_args().seam_only
 
     from bucketeer_tpu_torch.batches import BatchRecipe, assemble_batch
     from bucketeer_tpu_torch.codec import encoder, pipeline
@@ -63,6 +145,9 @@ if __name__ == "__main__":
     conv = CudaConverter()
     h, w = img.shape[:2]
 
+    seam_against_recorder(cards)
+    if seam_only:
+        raise SystemExit(0)
     # (a) one tile, rows over every card.
     params = dataclasses.replace(conv.encode_params(h, w, 8, LL),
                                  tile_size=None)

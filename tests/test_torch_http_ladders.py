@@ -16,9 +16,9 @@ Derivatives are written by the JAX encoder, as in the JAX suites.
 ``Scheduler`` is the port's alias of ``EncodeScheduler``, and the two
 encode-side obs cases pass neither a front-end mode nor ``device_mq``:
 the port's defaults are the JAX package's (front-end mode "rows"; the
-host Tier-1 off the card). The obs cases' ``modeled_s`` /
-``modeled_from`` asserts are dropped and nothing else: the port leaves
-the JAX package's launch cost model (obs/cost.py) out on purpose."""
+host Tier-1 off the card). The merged launch span carries the port's
+cost model's ``modeled_s`` / ``modeled_from`` (obs/cost.py), as the JAX
+span does; on a CPU pool the model is the ``cpu`` machine's."""
 import asyncio
 import json
 import logging
@@ -633,6 +633,12 @@ def test_merged_launch_span_links_both_requests():
             assert launch["attrs"]["tiles"] == 2
             assert launch["attrs"]["mode"] == "rows"
             assert launch["attrs"]["device_id"] == 0
+            # The modeled cost beside the measured duration — the
+            # per-launch measured-vs-modeled drift sample.
+            assert launch["attrs"]["modeled_s"] > 0
+            assert launch["attrs"]["modeled_from"].startswith(
+                "frontend.rows/")
+            assert launch["attrs"]["modeled_from"].endswith("@cpu")
             assert launch["dur"] >= 0
             # Both requests got sliced views of the one merged launch.
             assert {type(r) for r in results.values()} == {

@@ -90,6 +90,12 @@ def test_port_imports_no_jax_and_no_jax_package():
             "bucketeer_tpu_torch.analysis",
             "bucketeer_tpu_torch.analysis.__main__",
             "bucketeer_tpu_torch.analysis.abi",
+            "bucketeer_tpu_torch.analysis.deviceaudit",
+            "bucketeer_tpu_torch.analysis.graftcost",
+            "bucketeer_tpu_torch.analysis.graftmesh",
+            "bucketeer_tpu_torch.analysis.rules_perf",
+            "bucketeer_tpu_torch.analysis.rules_shard",
+            "bucketeer_tpu_torch.obs.cost",
             "bucketeer_tpu_torch.analysis.findings",
             "bucketeer_tpu_torch.analysis.lint",
             "bucketeer_tpu_torch.analysis.rules_async",

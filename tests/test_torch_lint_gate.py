@@ -1,9 +1,10 @@
 """The lint gate over the PyTorch port: bucketeer_tpu_torch must pass
-graftlint in strict mode with no baseline file (the port copy of
-tests/test_lint_gate.py), and the ABI cross-check of its hand-written
-ctypes tables against the extern "C" functions of csrc/ must be live:
-it reads every table, and a table that disagrees with its source is
-reported."""
+graftlint in strict mode with no baseline entry for any lint rule (the
+port copy of tests/test_lint_gate.py; the baseline file holds only the
+cost model's and the mesh audit's known offenders, judged by their own
+audits), and the ABI cross-check of its hand-written ctypes tables
+against the extern "C" functions of csrc/ must be live: it reads every
+table, and a table that disagrees with its source is reported."""
 import textwrap
 from pathlib import Path
 
@@ -18,7 +19,13 @@ PKG = REPO / "bucketeer_tpu_torch"
 
 
 def test_repo_is_lint_clean_strict():
-    assert not (REPO / DEFAULT_BASELINE).exists()
+    baseline = REPO / DEFAULT_BASELINE
+    if baseline.exists():
+        import json
+
+        rules = {e["rule"] for e in json.loads(
+            baseline.read_text(encoding="utf-8"))["findings"]}
+        assert all(r.startswith(("perf-", "shard-")) for r in rules), rules
     findings = lint.run_lint(PKG)
     assert findings == [], "\n" + "\n".join(f.render() for f in findings)
 

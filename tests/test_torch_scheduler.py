@@ -630,19 +630,83 @@ def test_dispatch_t1_pipeline_off_runs_inline():
 
 
 def test_plan_split_override_model_and_fallback(monkeypatch):
+    """The port of tests/test_scheduler_pool.py's case: the mapper reads
+    the cost model (obs/cost.py modeled_stage_costs on the pool's device
+    type), as the JAX scheduler does; measured stage costs decide
+    nothing."""
+    from bucketeer_tpu_torch.obs import cost as obs_cost
+
     sched = _sched(pipeline="auto", pipeline_split=3)
     try:
         assert sched._plan_split(8) == 3          # config override wins
         sched.pipeline_split = 0
-        # Bi-criteria mapper on measured costs: a heavy Tier-1 stage
+        asked = []
+
+        def model(costs):
+            def modeled(device="cuda"):
+                asked.append(device)
+                return costs
+            return modeled
+        # Bi-criteria mapper on modeled costs: a heavy Tier-1 stage
         # pulls the split toward more Tier-1 workers.
-        monkeypatch.setattr(sched, "stage_costs", lambda: (3.0, 1.0))
+        monkeypatch.setattr(obs_cost, "modeled_stage_costs",
+                            model((3.0, 1.0)))
+        monkeypatch.setattr(sched, "stage_costs", lambda: (1.0, 9.0))
         assert sched._plan_split(4) == 3
-        monkeypatch.setattr(sched, "stage_costs", lambda: (1.0, 1.0))
+        monkeypatch.setattr(obs_cost, "modeled_stage_costs",
+                            model((1.0, 1.0)))
         assert sched._plan_split(4) == 2
-        # Nothing measured yet: even split.
-        monkeypatch.setattr(sched, "stage_costs", lambda: None)
+        # No model: even split.
+        monkeypatch.setattr(obs_cost, "modeled_stage_costs", model(None))
         assert sched._plan_split(8) == 4
+        assert set(asked) == {"cpu"}
+    finally:
+        sched.close()
+
+
+@pytest.mark.parametrize("costs", [(3.0, 1.0), (1.0, 1.0), None,
+                                   (0.5, 5.0)])
+def test_plan_split_equals_jax_for_the_same_costs(monkeypatch, costs):
+    """Fed the same stage costs, the port's mapper picks the JAX
+    mapper's split on every pool size."""
+    from bucketeer_tpu.engine.scheduler import EncodeScheduler as JaxSched
+    from bucketeer_tpu.obs import cost as jax_obs_cost
+    from bucketeer_tpu_torch.obs import cost as obs_cost
+
+    monkeypatch.setattr(obs_cost, "modeled_stage_costs",
+                        lambda device="cuda": costs)
+    monkeypatch.setattr(jax_obs_cost, "modeled_stage_costs",
+                        lambda: costs)
+    mine = _sched(pipeline="auto")
+    theirs = JaxSched(pipeline="auto")
+    try:
+        for n in (2, 3, 4, 5, 8):
+            assert mine._plan_split(n) == theirs._plan_split(n), n
+    finally:
+        mine.close()
+        theirs.close()
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_engaged_split_on_a_fresh_cpu_pool_equals_jax(n):
+    """ROADMAP C.14: the first staged Tier-1 launch of a fresh CPU pool
+    engages the split the JAX scheduler plans from its own model (one
+    front-end worker on 2, 4 and 8 devices), not an even split."""
+    from bucketeer_tpu.engine.scheduler import EncodeScheduler as JaxSched
+    from bucketeer_tpu_torch.obs import cost as obs_cost
+
+    obs_cost.reset_cache()
+    theirs = JaxSched(pipeline="auto")
+    try:
+        want = theirs._plan_split(n)
+    finally:
+        theirs.close()
+    sched = _sched(window_s=0, devices=n, pipeline="auto")
+    sched.launch_fn = _stub
+    try:
+        assert sched.stage_costs() is None
+        assert sched.dispatch_t1(lambda p: p + 1, 1) == 2
+        assert sched.stats()["pipeline_split"] == want == 1
     finally:
         sched.close()
 
