@@ -28,7 +28,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import obs
 from ..analysis import graftcost
+from ..analysis.graftrace import seam
 from ..kernels.cxd_scan import cxd_scan
 from ..kernels.fused_t1 import (CBLK, MQ_ROW_BYTES, fused_t1, max_syms,
                                 mq_capacity)
@@ -199,6 +201,13 @@ def run_device_mq(blocks_dev: torch.Tensor, nbps: np.ndarray,
     byte segments and per-pass snapshots, assembled on the host.
     ``blocks_dev``: (n, 64, 64) int32."""
     n = len(nbps)
+    # Spans per launch group, tiling the call: encode.t1_launch runs from
+    # the previous group's assembly (the call's start for the first
+    # group, so the group plan and the output list count) through the
+    # kernel's small copies and their checks; then encode.t1_fetch and
+    # encode.t1_assemble.
+    ctx = obs.current_context()
+    t_mark = seam.monotonic()
     out = [t1.CodedBlock(b"", 0) for _ in range(n)]
     tot_syms = tot_bytes = 0
     t_cxd = t_mq = t_host = 0.0
@@ -220,19 +229,27 @@ def run_device_mq(blocks_dev: torch.Tensor, nbps: np.ndarray,
         dist = (dh_h.astype(np.float64) + dl_h.astype(np.float64)) / 4.0
         # Only the rows each live block filled (its segment includes the
         # leading dummy pre-byte).
+        rows_needed = -(-(dlen_h + 1) // MQ_ROW_BYTES) * (dlen_h > 0)
+        n_rows = int(rows_needed.sum())
+        obs.record_span("encode.t1_launch", t_mark, seam.monotonic(), ctx,
+                        blocks=len(idxs), L=L)
         t0 = time.perf_counter()
-        payload, row_offs = _fetch_block_rows(
-            rows, -(-(dlen_h + 1) // MQ_ROW_BYTES) * (dlen_h > 0),
-            cap // MQ_ROW_BYTES, MQ_ROW_BYTES)
+        with obs.span("encode.t1_fetch", rows=n_rows,
+                      bytes=n_rows * MQ_ROW_BYTES, dlen=int(dlen_h.sum())):
+            payload, row_offs = _fetch_block_rows(
+                rows, rows_needed, cap // MQ_ROW_BYTES, MQ_ROW_BYTES)
         t_mq += time.perf_counter() - t0
         t0 = time.perf_counter()
-        blocks_g = assemble_mq_blocks(nbps[idxs], floors[idxs], snaps_h,
-                                      dlen_h, dist, payload, row_offs)
-        for k, i in enumerate(idxs):
-            out[int(i)] = blocks_g[k]
+        with obs.span("encode.t1_assemble", blocks=len(idxs)):
+            blocks_g = assemble_mq_blocks(nbps[idxs], floors[idxs],
+                                          snaps_h, dlen_h, dist, payload,
+                                          row_offs)
+            for k, i in enumerate(idxs):
+                out[int(i)] = blocks_g[k]
         t_host += time.perf_counter() - t0
         tot_syms += int(cur_h.sum())
         tot_bytes += int(dlen_h.sum())
+        t_mark = seam.monotonic()
     return MqDeviceResult(out, tot_syms, tot_bytes, t_cxd, t_mq, t_host)
 
 

@@ -602,7 +602,9 @@ def _legacy_tier1(groups: dict, plans: dict, img: np.ndarray,
       devices.
 
     ``tm`` gains the transform and copy-back seconds ("device") and the
-    slicing and coding seconds ("host").
+    slicing and coding seconds ("host"); the same stages are spans
+    ``encode.transform`` and ``encode.block_slice`` per shape group and
+    ``encode.host_t1`` (``path="legacy"``) once.
 
     Returns (tile_records, coded blocks, weights, qcd_values)."""
     from .pipeline import extract_bands, run_tiles
@@ -627,53 +629,63 @@ def _legacy_tier1(groups: dict, plans: dict, img: np.ndarray,
     tile_records = []
     qcd_values = None
     norms = _RCT_NORMS if params.lossless else _ICT_NORMS
+    mesh_shape = dict(mesh.shape) if mesh is not None else None
     for (th, tw), members in groups.items():
         plan = plans[(th, tw)]
         t0 = time.perf_counter()
-        batch = np.stack([img[y0:y0 + th, x0:x0 + tw]
-                          for _, y0, x0 in members])
-        planes = transform(plan, batch)
+        with obs.span("encode.transform", tiles=len(members),
+                      mesh=mesh_shape):
+            batch = np.stack([img[y0:y0 + th, x0:x0 + tw]
+                              for _, y0, x0 in members])
+            planes = transform(plan, batch)
         t1_ = time.perf_counter()
         tm["device"] += t1_ - t0
-        if qcd_values is None:
-            qcd_values = _qcd_values(plan)
-        for s in plan.slots:
-            weight_of_slot.setdefault((s.resolution, s.name),
-                                      _band_weight(s, gains))
-        for (tidx, y0, x0), tile_planes in zip(members, planes):
-            tcx1, tcy1 = x0 + plan.tile_w, y0 + plan.tile_h
-            comp_res = []
-            for c in range(plan.n_comps):
-                resolutions = []
-                for res_bands in extract_bands(tile_planes[c], plan):
-                    bands = []
-                    for slot, mags, signs, fracs in res_bands:
-                        bx0, bx1, by0, by1 = _band_rect(
-                            x0, tcx1, y0, tcy1, slot.resolution,
-                            slot.name, plan.levels)
-                        if (by1 - by0, bx1 - bx0) != (slot.h, slot.w):
-                            raise ValueError(
-                                "tile origin not aligned for this level "
-                                "count")
-                        band = _Band(slot.name, slot.resolution, c,
-                                     slot.quant, bx0, bx1, by0, by1,
-                                     mags, signs, fracs)
-                        _collect_blocks(band, specs, dests)
-                        bands.append(band)
-                    resolutions.append(bands)
-                comp_res.append(resolutions)
-            tile_records.append((tidx, (y0, x0), plan, comp_res))
+        # The block count is known once the group is sliced.
+        with obs.span("encode.block_slice") as sp:
+            n0 = len(specs)
+            if qcd_values is None:
+                qcd_values = _qcd_values(plan)
+            for s in plan.slots:
+                weight_of_slot.setdefault((s.resolution, s.name),
+                                          _band_weight(s, gains))
+            for (tidx, y0, x0), tile_planes in zip(members, planes):
+                tcx1, tcy1 = x0 + plan.tile_w, y0 + plan.tile_h
+                comp_res = []
+                for c in range(plan.n_comps):
+                    resolutions = []
+                    for res_bands in extract_bands(tile_planes[c], plan):
+                        bands = []
+                        for slot, mags, signs, fracs in res_bands:
+                            bx0, bx1, by0, by1 = _band_rect(
+                                x0, tcx1, y0, tcy1, slot.resolution,
+                                slot.name, plan.levels)
+                            if (by1 - by0, bx1 - bx0) != (slot.h,
+                                                          slot.w):
+                                raise ValueError(
+                                    "tile origin not aligned for this "
+                                    "level count")
+                            band = _Band(slot.name, slot.resolution, c,
+                                         slot.quant, bx0, bx1, by0, by1,
+                                         mags, signs, fracs)
+                            _collect_blocks(band, specs, dests)
+                            bands.append(band)
+                        resolutions.append(bands)
+                    comp_res.append(resolutions)
+                tile_records.append((tidx, (y0, x0), plan, comp_res))
+            if sp is not None:
+                sp.attrs["blocks"] = len(specs) - n0
         tm["host"] += time.perf_counter() - t1_
 
     t0 = time.perf_counter()
-    coded = t1_batch.encode_blocks(specs)
-    blocks = []
-    weights = []
-    for (band, cy, cx), blk in zip(dests, coded):
-        band.blocks[(cy, cx)] = blk
-        blocks.append(blk)
-        cw = norms[band.comp] ** 2 if used_mct else 1.0
-        weights.append(weight_of_slot[(band.res, band.name)] * cw)
+    with obs.span("encode.host_t1", blocks=len(specs), path="legacy"):
+        coded = t1_batch.encode_blocks(specs)
+        blocks = []
+        weights = []
+        for (band, cy, cx), blk in zip(dests, coded):
+            band.blocks[(cy, cx)] = blk
+            blocks.append(blk)
+            cw = norms[band.comp] ** 2 if used_mct else 1.0
+            weights.append(weight_of_slot[(band.res, band.name)] * cw)
     for _, _, _, comp_res in tile_records:
         for resolutions in comp_res:
             for bands in resolutions:

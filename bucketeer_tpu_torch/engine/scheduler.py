@@ -78,9 +78,14 @@ device launch), counters ``<kind>.admission_rejects``,
 rows-mode front-end launch). Merged-launch spans carry the worker's
 ``device_id`` and, for rows mode, ``modeled_s`` and ``modeled_from``
 (``<manifest entry>@<machine>``, the machine of the pool's device
-type). A ``sched`` reporter on the sink adds the per-device occupancy
-gauge (``sched.device_occupancy.d<N>``: busy fraction since the pool
-started) and the live device-queue depth.
+type). Every device job's wait in the queue, from its append until a
+worker takes it into a launch group (the merge window included, the
+launch not), is a ``device.queue_wait`` span on the submitting
+request's trace, with ``stage``, ``depth`` (jobs queued ahead),
+``device_id`` and ``occupancy``; a staged Tier-1 job's wait starts
+before it waits for staging room. A ``sched`` reporter on the sink adds
+the per-device occupancy gauge (``sched.device_occupancy.d<N>``: busy
+fraction since the pool started) and the live device-queue depth.
 
 Every tuning value is a constructor or :meth:`EncodeScheduler.configure`
 argument; the JAX package's ``BUCKETEER_SCHED_*`` environment variables
@@ -187,6 +192,8 @@ class _DeviceJob:
     ctx: object = None
     priority: int = PRIORITY_SINGLE
     seq: int = 0
+    # (span-clock time it entered the device queue, jobs ahead of it)
+    queued: tuple = (0.0, 0)
     event: threading.Event = field(
         default_factory=lambda: seam.make_event("DeviceJob.event"))
     result: object = None
@@ -234,6 +241,7 @@ class _TensorJob:
     ctx: object = None
     priority: int = PRIORITY_TENSOR
     seq: int = 0
+    queued: tuple = (0.0, 0)
     event: threading.Event = field(
         default_factory=lambda: seam.make_event("TensorJob.event"))
     result: object = None
@@ -267,6 +275,7 @@ class _DequantJob:
     ctx: object = None
     priority: int = PRIORITY_BATCHREAD
     seq: int = 0
+    queued: tuple = (0.0, 0)
     event: threading.Event = field(
         default_factory=lambda: seam.make_event("DequantJob.event"))
     result: object = None
@@ -294,6 +303,7 @@ class _T1Job:
     ctx: object = None
     priority: int = PRIORITY_SINGLE
     seq: int = 0
+    queued: tuple = (0.0, 0)
     event: threading.Event = field(
         default_factory=lambda: seam.make_event("T1Job.event"))
     result: object = None
@@ -881,6 +891,7 @@ class EncodeScheduler:
             if self._stop:
                 raise SchedulerClosed("scheduler is closed")
             job.seq = next(self._dseq)
+            job.queued = (seam.monotonic(), len(self._djobs))
             seam.write(self, "_djobs")
             self._djobs.append(job)
             self._scale_up_locked()
@@ -960,6 +971,8 @@ class EncodeScheduler:
             return fn(payload)
         job = _T1Job(fn, payload, ctx=obs.current_context(),
                      priority=_priority)
+        # The queue wait counts the wait for staging room too.
+        t_staged = seam.monotonic()
         with self._dq_cv:
             while True:
                 seam.read(self, "_stop")
@@ -972,6 +985,7 @@ class EncodeScheduler:
                     break
                 self._dq_cv.wait(0.05)
             job.seq = next(self._dseq)
+            job.queued = (t_staged, len(self._djobs))
             seam.write(self, "_djobs")
             self._djobs.append(job)
             self._dq_cv.notify_all()
@@ -1191,7 +1205,15 @@ class EncodeScheduler:
                 self._dq_cv.notify_all()
                 group = self._gather_locked(widx, job)
                 seam.write(self, "_busy_since")
-                self._busy_since[widx] = seam.monotonic()
+                self._busy_since[widx] = started = seam.monotonic()
+            if obs.installed():
+                # Each job's wait, from its append to this take, on its
+                # submitting request's trace.
+                for j in group:
+                    obs.record_span(
+                        "device.queue_wait", j.queued[0], started,
+                        ctx=j.ctx, stage=j.stage, depth=j.queued[1],
+                        device_id=widx, occupancy=len(group))
             fatal = False
             try:
                 with _pinned(self._devices[widx]):
@@ -1430,7 +1452,10 @@ class EncodeScheduler:
                 if dev is not None and isinstance(payload, torch.Tensor):
                     payload = payload.to(dev)
                 seam.write(job, "result")
-                job.result = job.fn(payload)
+                # The stage's own spans join the submitting request's
+                # trace (under its encode.t1_device span).
+                with obs.use_context(job.ctx):
+                    job.result = job.fn(payload)
             self._add_stage_s("t1", time.perf_counter() - t0)
 
         def record(sink):

@@ -34,6 +34,19 @@ Context propagation rules:
 - Bus consumers run in fresh tasks: messages carry the request id in
   the ``request-id`` field and the consumer re-enters it with
   :func:`request_context`.
+- An interval no ``with`` block can hold is recorded once it is over,
+  under a captured context (:func:`record_span`): a wait one thread
+  starts and another ends (a job in the scheduler's device queue, by
+  the thread that ends it), or a stretch timed from where the one
+  before it ended (the device Tier-1 driver's launch spans).
+
+The clock anchor: span times stay on ``seam.monotonic()``; the recorder
+also keeps the offset from that clock to ``CLOCK_REALTIME``
+(``time.time_ns()``), the clock ``torch.profiler`` stamps device
+activity with, so a request's spans can be placed on the profiler's
+timeline (``export.chrome_trace(..., clock="unix")``). Under the
+graftrace explorer's virtual clock there is no such offset and the
+anchor is None.
 """
 from __future__ import annotations
 
@@ -42,10 +55,14 @@ import contextvars
 import itertools
 import os
 import threading
+import time
 
 from ..analysis.graftrace import seam
 
 DEFAULT_RING_SPANS = 4096
+
+# Back-to-back clock pairs read for the anchor; the tightest wins.
+ANCHOR_READS = 8
 
 # The current trace context: (trace_id, span_id | None). Module-level so
 # the fast path is one ContextVar.get; never mutated except via token
@@ -205,6 +222,24 @@ class _Ring:
             return self._buf[self._pos:] + self._buf[:self._pos]
 
 
+def clock_anchor():
+    """Offset in ns from the span clock to ``CLOCK_REALTIME``: a
+    monotonic time ``t`` (seconds) is ``t * 1e9 + anchor`` ns since the
+    Unix epoch. Each read brackets ``time.time_ns()`` between two
+    monotonic reads; the narrowest bracket's midpoint gives the offset.
+    None under the graftrace explorer, whose clock is virtual."""
+    if seam.active():
+        return None
+    best = None
+    for _ in range(ANCHOR_READS):
+        a = time.monotonic_ns()
+        r = time.time_ns()
+        b = time.monotonic_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, r - (a + b) // 2)
+    return best[1]
+
+
 class Recorder:
     """The process tracer: hands out spans, owns the rings and the
     flight recorder. ``ring_spans`` bounds memory per thread;
@@ -230,6 +265,7 @@ class Recorder:
         # atomic under the GIL, so span ids need no lock.
         self._ids = itertools.count(1)
         self._sink = None
+        self.clock_anchor_ns = clock_anchor()
         self.flight = FlightRecorder(
             self, max_dumps=flight_dumps,
             min_interval_s=flight_min_interval_s)
@@ -257,6 +293,19 @@ class Recorder:
 
     def _finish(self, span: Span) -> None:
         self._ring().append(span)
+
+    def record(self, name: str, t0: float, t1: float, ctx,
+               attrs) -> None:
+        """Record an interval that is already over, [t0, t1] on the
+        span clock, as a child of ``ctx``; it lands in the calling
+        thread's ring. The current context is left as it is."""
+        trace_id = parent_id = None
+        if ctx is not None:
+            trace_id, parent_id = ctx
+        s = Span(trace_id, next(self._ids), parent_id, name, t0,
+                 threading.current_thread().name, attrs)
+        s.dur = max(0.0, t1 - t0)
+        self._finish(s)
 
     def _ring(self) -> _Ring:
         ring = getattr(self._tls, "ring", None)
@@ -306,6 +355,7 @@ class Recorder:
             "completed": sum(r.total for r in rings),
             "overwritten": sum(r.dropped for r in rings),
             "ring_spans": self.ring_spans,
+            "clock_anchor_ns": self.clock_anchor_ns,
         }
 
 
@@ -320,6 +370,17 @@ def span(name: str, ctx=_UNSET, links=(), **attrs):
     if rec is None:
         return _NOOP
     return rec.start(name, ctx, links, attrs)
+
+
+def record_span(name: str, t0: float, t1: float, ctx=None,
+                **attrs) -> None:
+    """Record a finished interval [t0, t1] (``seam.monotonic()``
+    seconds) under a captured ``ctx`` pair, for an interval no ``with``
+    block can hold (a wait that one thread starts and another ends). A
+    no-op when no recorder is installed."""
+    rec = _REC
+    if rec is not None:
+        rec.record(name, t0, t1, ctx, attrs)
 
 
 def current_context():
