@@ -13,9 +13,10 @@ with ``device_mq=False`` (or unset off a CUDA device: _tier1_mode) and
 device (front-end mode "rows"), the planes each block codes gathered and
 copied to the host, and context modeling and MQ coding there in C++
 (t1_batch.encode_packed). All three give byte-identical output -> [host]
-PCRD-opt layer allocation (codec/rate.py) -> Tier-2 packets with
-precincts, any of the five progressions, SOP/EPH/PLT markers and
-per-resolution tile-parts -> codestream -> JP2/JPX boxes.
+PCRD-opt layer allocation and Tier-2 packets with precincts, any of the
+five progressions, SOP/EPH markers and per-resolution tile-parts, in
+C++ (codec/t2_native.py; codec/rate.py and codec/t2.py are the plain
+version, :func:`_plain_finish`) -> PLT, codestream -> JP2/JPX boxes.
 
 Tiles are grouped by shape and cut into chunks of CHUNK_TILES tiles;
 each chunk's front-end and Tier-1 work is queued on the device's stream
@@ -61,7 +62,7 @@ from . import cxd as cxd_mod
 from . import frontend
 from . import jp2 as jp2box
 from . import rate as rate_mod
-from . import t1, t1_batch, t2
+from . import t1, t1_batch, t2, t2_native
 from .dwt import synthesis_gains
 from .pipeline import TilePlan, make_plan
 from .quant import FRAC_BITS, GUARD_BITS, SubbandQuant
@@ -436,17 +437,19 @@ class _PrecinctRec:
     p_idx: int          # raster index within (comp, res)
     ref_y: int          # reference-grid position (progression ordering)
     ref_x: int
-    band_precincts: list
+    band_precincts: object  # [t2.Precinct]; in _packet_plan, the index
 
 
-def _build_precincts(comp_res: list, origin: tuple, plan: TilePlan,
-                     exps: list, assigns_of) -> list:
-    """Partition a tile's bands into precincts (anchored at 0 on each
-    *global* resolution grid, T.800 B.6) and fill Tier-2 block state."""
+def _precinct_grid(comp_res: list, origin: tuple, plan: TilePlan,
+                   exps: list):
+    """A tile's precincts (anchored at 0 on each *global* resolution
+    grid, T.800 B.6), component by component and resolution by
+    resolution: yields (comp, res, p_idx, ref_y, ref_x, cells), where
+    cells holds, per band of the resolution, (band, kx0, kx1, ky0, ky1),
+    the precinct's range of the band's 64-grid cells."""
     y0, x0 = origin
     tcx1, tcy1 = x0 + plan.tile_w, y0 + plan.tile_h
     levels = plan.levels
-    records = []
     for c, resolutions in enumerate(comp_res):
         for r, bands in enumerate(resolutions):
             e = levels - r
@@ -461,7 +464,7 @@ def _build_precincts(comp_res: list, origin: tuple, plan: TilePlan,
             p_idx = 0
             for py in range(py_lo, py_hi):
                 for px in range(px_lo, px_hi):
-                    bps = []
+                    cells = []
                     for band in bands:
                         pbx0 = (px << ppx) >> shift
                         pbx1 = ((px + 1) << ppx) >> shift
@@ -472,23 +475,36 @@ def _build_precincts(comp_res: list, origin: tuple, plan: TilePlan,
                         kx1 = min(cx1, _ceil_div(pbx1, 1 << CBLK_EXP))
                         ky0 = max(cy0, pby0 >> CBLK_EXP)
                         ky1 = min(cy1, _ceil_div(pby1, 1 << CBLK_EXP))
-                        nbw, nbh = max(0, kx1 - kx0), max(0, ky1 - ky0)
-                        prec = t2.Precinct(nbw, nbh)
-                        for i, (cy, cx) in enumerate(
-                                (cy, cx) for cy in range(ky0, ky1)
-                                for cx in range(kx0, kx1)):
-                            blk = band.blocks[(cy, cx)]
-                            pb = t2.PrecinctBlock(
-                                missing_bitplanes=band.q.n_bitplanes
-                                - blk.n_bitplanes)
-                            pb.layers = _block_layers(blk, assigns_of(blk))
-                            prec.blocks[i] = pb
-                        bps.append(prec)
+                        cells.append((band, kx0, kx1, ky0, ky1))
                     ref_y = max(try0, py << ppy) << e
                     ref_x = max(trx0, px << ppx) << e
-                    records.append(_PrecinctRec(c, r, p_idx, ref_y, ref_x,
-                                                bps))
+                    yield c, r, p_idx, ref_y, ref_x, cells
                     p_idx += 1
+
+
+def _build_precincts(comp_res: list, origin: tuple, plan: TilePlan,
+                     exps: list, assigns_of) -> list:
+    """Partition a tile's bands into precincts and fill Tier-2 block
+    state (the plain version's; the native build plans the same
+    precincts in :func:`_packet_plan`)."""
+    records = []
+    for c, r, p_idx, ref_y, ref_x, cells in _precinct_grid(
+            comp_res, origin, plan, exps):
+        bps = []
+        for band, kx0, kx1, ky0, ky1 in cells:
+            nbw, nbh = max(0, kx1 - kx0), max(0, ky1 - ky0)
+            prec = t2.Precinct(nbw, nbh)
+            for i, (cy, cx) in enumerate(
+                    (cy, cx) for cy in range(ky0, ky1)
+                    for cx in range(kx0, kx1)):
+                blk = band.blocks[(cy, cx)]
+                pb = t2.PrecinctBlock(
+                    missing_bitplanes=band.q.n_bitplanes
+                    - blk.n_bitplanes)
+                pb.layers = _block_layers(blk, assigns_of(blk))
+                prec.blocks[i] = pb
+            bps.append(prec)
+        records.append(_PrecinctRec(c, r, p_idx, ref_y, ref_x, bps))
     return records
 
 
@@ -534,6 +550,13 @@ def _packet_sequence(progression: int, records: list, n_res: int,
         raise ValueError(f"unknown progression {progression}")
 
 
+def _split_by_resolution(params: EncodeParams) -> bool:
+    """Whether each tile is cut into a tile-part per resolution:
+    ``tparts_r`` with a resolution-major progression."""
+    return params.tparts_r and params.progression in (cs.PROG_RPCL,
+                                                      cs.PROG_RLCP)
+
+
 def _tile_parts(params: EncodeParams, tidx: int, records: list,
                 n_res: int, n_comps: int) -> list:
     """Encode a tile's packets and split them into tile-parts.
@@ -542,8 +565,7 @@ def _tile_parts(params: EncodeParams, tidx: int, records: list,
     ``tparts_r`` and a resolution-major progression this is one
     tile-part per resolution (``ORGtparts=R``), each carrying its own
     PLT when ``gen_plt`` (KakaduConverter.java:40)."""
-    split_r = params.tparts_r and params.progression in (cs.PROG_RPCL,
-                                                         cs.PROG_RLCP)
+    split_r = _split_by_resolution(params)
     groups: list = []        # [(packets bytes list, lengths list)]
     group_of_res: dict = {}
     sop_counter = 0
@@ -568,6 +590,59 @@ def _tile_parts(params: EncodeParams, tidx: int, records: list,
         aux = [cs.plt(lens, zplt=tpsot)] if params.gen_plt else []
         parts.append((tidx, tpsot, tnsot, aux, b"".join(pkts)))
     return parts
+
+
+def _packet_plan(params: EncodeParams, tile_records: list,
+                 assign_index: dict, exps: list, levels: int,
+                 n_comps: int) -> t2_native.PacketPlan:
+    """The native build's packet plan: the precincts of
+    :func:`_build_precincts` and the packet order and tile-parts of
+    :func:`_tile_parts`, tile by tile, as arrays of block indices
+    (``assign_index``: id(CodedBlock) -> index)."""
+    split_r = _split_by_resolution(params)
+    bp_dims, bp_off, bp_blocks, bp_zbp = [], [0], [], []
+    rec_off = [0]
+    pkts, part_off, parts = [], [0], []
+    for tidx, origin, plan, comp_res in sorted(tile_records,
+                                               key=lambda t: t[0]):
+        records = []
+        for c, r, p_idx, ref_y, ref_x, cells in _precinct_grid(
+                comp_res, origin, plan, exps):
+            for band, kx0, kx1, ky0, ky1 in cells:
+                bp_dims.append((max(0, kx1 - kx0), max(0, ky1 - ky0)))
+                cell = band.blocks
+                blks = [cell[(cy, cx)] for cy in range(ky0, ky1)
+                        for cx in range(kx0, kx1)]
+                bp_blocks.extend([assign_index[id(b)] for b in blks])
+                mb = band.q.n_bitplanes
+                bp_zbp.extend([mb - b.n_bitplanes for b in blks])
+                bp_off.append(len(bp_blocks))
+            records.append(_PrecinctRec(c, r, p_idx, ref_y, ref_x,
+                                        len(rec_off) - 1))
+            rec_off.append(len(bp_dims))
+        # Packets in codestream order; a tile-part per resolution with
+        # split_r (resolution-major orders, so each part is a run).
+        keys: list = []
+        for n, (rec, layer) in enumerate(_packet_sequence(
+                params.progression, records, levels + 1, n_comps,
+                params.n_layers)):
+            key = rec.res if split_r else 0
+            if not keys or keys[-1] != key:
+                assert key not in keys, "tile-part packets not contiguous"
+                keys.append(key)
+                if len(keys) > 1:
+                    part_off.append(len(pkts))
+            pkts.append((rec.band_precincts, layer,
+                         n if params.use_sop else -1))
+        if keys:
+            part_off.append(len(pkts))
+        parts.extend((tidx, tpsot, len(keys)) for tpsot in range(len(keys)))
+    return t2_native.PacketPlan(
+        np.asarray(bp_dims, np.int32).reshape(-1, 2),
+        np.asarray(bp_off, np.int32), np.asarray(bp_blocks, np.int32),
+        np.asarray(bp_zbp, np.int32), np.asarray(rec_off, np.int32),
+        np.asarray(pkts, np.int32).reshape(-1, 3),
+        np.asarray(part_off, np.int32), parts)
 
 
 def _band_weight(slot, gains) -> float:
@@ -852,11 +927,9 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
             stats["blocks"] = len(all_coded)
             stats["bytes"] = sum(len(b.data) for b in all_coded)
         assign_index = {id(b): i for i, b in enumerate(all_coded)}
-        with obs.span("encode.tier2"):
-            return _finish(img, params, tile_records, all_coded,
-                           block_weights, assign_index, qcd_values,
-                           used_mct, bitdepth, n_comps, levels, tile,
-                           target)
+        return _finish(img, params, tile_records, all_coded,
+                       block_weights, assign_index, qcd_values, used_mct,
+                       bitdepth, n_comps, levels, tile, target)
 
     chunks, tile_records, qcd_values = _build_chunks(
         groups, plans, used_mct, gains, weight_of_slot, norms)
@@ -1105,10 +1178,9 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
         if mode != "rows":
             stats["symbols"] = sum(res.total_syms for res in results)
         stats["bytes"] = sum(res.total_bytes for res in results)
-    with obs.span("encode.tier2"):
-        return _finish(img, params, tile_records, all_coded,
-                       block_weights, assign_index, qcd_values, used_mct,
-                       bitdepth, n_comps, levels, tile, target)
+    return _finish(img, params, tile_records, all_coded, block_weights,
+                   assign_index, qcd_values, used_mct, bitdepth, n_comps,
+                   levels, tile, target)
 
 
 def _record_encode(mode: str, tm: dict, wall_s: float, pixels: int,
@@ -1141,15 +1213,11 @@ def _record_encode(mode: str, tm: dict, wall_s: float, pixels: int,
                         pixels=pixels)
 
 
-def _finish(img: np.ndarray, params: EncodeParams, tile_records: list,
-            all_blocks: list, block_weights: list, assign_index: dict,
-            qcd_values: list, used_mct: bool, bitdepth: int, n_comps: int,
-            levels: int, tile: int, target: float | None) -> bytes:
-    """PCRD layer allocation + Tier-2 + codestream assembly, iterated a
-    few times so the assembled file size (headers included) lands on the
-    byte target."""
+def _main_segments(img: np.ndarray, params: EncodeParams, exps: list,
+                   qcd_values: list, used_mct: bool, bitdepth: int,
+                   n_comps: int, levels: int, tile: int) -> list:
+    """The main header's marker segments: SIZ, COD, QCD and COM."""
     h, w = img.shape[:2]
-    exps = _precinct_exps(params, levels)
     segs = [
         cs.siz(w, h, n_comps, bitdepth, tile, tile),
         cs.cod(params.progression, params.n_layers,
@@ -1162,23 +1230,13 @@ def _finish(img: np.ndarray, params: EncodeParams, tile_records: list,
     ]
     if params.comment:
         segs.append(cs.com(params.comment))
+    return segs
 
-    def build(budget: float | None) -> bytes:
-        assigns = rate_mod.allocate(all_blocks, block_weights,
-                                    params.n_layers, budget)
 
-        def assigns_of(blk):
-            return assigns[assign_index[id(blk)]]
-
-        parts = []
-        for tidx, origin, plan, comp_res in sorted(tile_records,
-                                                   key=lambda t: t[0]):
-            records = _build_precincts(comp_res, origin, plan, exps,
-                                       assigns_of)
-            parts.extend(_tile_parts(params, tidx, records, levels + 1,
-                                     n_comps))
-        return cs.assemble_parts(segs, parts)
-
+def _fit_to_target(build, target: float | None) -> bytes:
+    """Run ``build(budget)`` until the assembled file size (headers
+    included) lands within 2 % of the byte target: at most four builds.
+    With no target, one build with no budget."""
     if target is None:
         return build(None)
 
@@ -1196,6 +1254,72 @@ def _finish(img: np.ndarray, params: EncodeParams, tile_records: list,
             _metrics_sink.count("encode.t2_rebuilds")
         out = build(budget)
     return out
+
+
+def _finish(img: np.ndarray, params: EncodeParams, tile_records: list,
+            all_blocks: list, block_weights: list, assign_index: dict,
+            qcd_values: list, used_mct: bool, bitdepth: int, n_comps: int,
+            levels: int, tile: int, target: float | None) -> bytes:
+    """PCRD layer allocation + Tier-2 + codestream assembly, iterated a
+    few times so the assembled file size (headers included) lands on the
+    byte target. The blocks are flattened and the packets planned once
+    (span ``encode.t2_plan``); each build runs in C++
+    (codec/t2_native.py), counted as ``encode.t2_native``."""
+    exps = _precinct_exps(params, levels)
+    segs = _main_segments(img, params, exps, qcd_values, used_mct,
+                          bitdepth, n_comps, levels, tile)
+    with obs.span("encode.tier2", path="native") as sp:
+        with obs.span("encode.t2_plan", blocks=len(all_blocks)):
+            native = t2_native.Tier2(
+                all_blocks, block_weights,
+                _packet_plan(params, tile_records, assign_index, exps,
+                             levels, n_comps),
+                params.n_layers, params.use_eph, params.gen_plt)
+        builds = 0
+
+        def build(budget: float | None) -> bytes:
+            nonlocal builds
+            builds += 1
+            if _metrics_sink is not None:
+                _metrics_sink.count("encode.t2_native")
+            return cs.assemble_parts(segs, native.build(budget))
+
+        out = _fit_to_target(build, target)
+        if sp is not None:
+            sp.attrs["builds"] = builds
+            sp.attrs["packets"] = native.n_packets
+    return out
+
+
+def _plain_finish(img: np.ndarray, params: EncodeParams,
+                  tile_records: list, all_blocks: list,
+                  block_weights: list, assign_index: dict,
+                  qcd_values: list, used_mct: bool, bitdepth: int,
+                  n_comps: int, levels: int, tile: int,
+                  target: float | None) -> bytes:
+    """The plain version of :func:`_finish`, in Python (codec/rate.py,
+    codec/t2.py): the tests hold the native build to it byte for byte."""
+    exps = _precinct_exps(params, levels)
+    segs = _main_segments(img, params, exps, qcd_values, used_mct,
+                          bitdepth, n_comps, levels, tile)
+
+    def build(budget: float | None) -> bytes:
+        assigns = rate_mod.allocate(all_blocks, block_weights,
+                                    params.n_layers, budget)
+
+        def assigns_of(blk):
+            return assigns[assign_index[id(blk)]]
+
+        parts = []
+        for tidx, origin, plan, comp_res in sorted(tile_records,
+                                                   key=lambda t: t[0]):
+            records = _build_precincts(comp_res, origin, plan, exps,
+                                       assigns_of)
+            parts.extend(_tile_parts(params, tidx, records, levels + 1,
+                                     n_comps))
+        return cs.assemble_parts(segs, parts)
+
+    return _fit_to_target(build, target)
 
 
 def _correct_distortions(blocks: list, fres) -> None:
