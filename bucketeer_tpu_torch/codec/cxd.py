@@ -191,6 +191,7 @@ class MqDeviceResult:
     cxd_s: float               # fused launches and their small copies
     mq_s: float                # byte-segment fetch
     host_s: float              # host assembly (the entire host share)
+    passes: int = 0            # coding passes assembled
 
 
 def run_device_mq(blocks_dev: torch.Tensor, nbps: np.ndarray,
@@ -209,7 +210,7 @@ def run_device_mq(blocks_dev: torch.Tensor, nbps: np.ndarray,
     ctx = obs.current_context()
     t_mark = seam.monotonic()
     out = [t1.CodedBlock(b"", 0) for _ in range(n)]
-    tot_syms = tot_bytes = 0
+    tot_syms = tot_bytes = tot_passes = 0
     t_cxd = t_mq = t_host = 0.0
     for L, idxs, args in _group_launches(blocks_dev, nbps, floors,
                                          bandnames, hs, ws):
@@ -239,8 +240,13 @@ def run_device_mq(blocks_dev: torch.Tensor, nbps: np.ndarray,
             payload, row_offs = _fetch_block_rows(
                 rows, rows_needed, cap // MQ_ROW_BYTES, MQ_ROW_BYTES)
         t_mq += time.perf_counter() - t0
+        # A block of nbp planes above its floor has one cleanup pass on
+        # its first plane and three on each plane below.
+        planes = np.maximum(nbps[idxs].astype(np.int64) - floors[idxs], 0)
+        passes = int(np.maximum(3 * planes - 2, 0).sum())
         t0 = time.perf_counter()
-        with obs.span("encode.t1_assemble", blocks=len(idxs)):
+        with obs.span("encode.t1_assemble", blocks=len(idxs), L=L,
+                      passes=passes):
             blocks_g = assemble_mq_blocks(nbps[idxs], floors[idxs],
                                           snaps_h, dlen_h, dist, payload,
                                           row_offs)
@@ -249,8 +255,10 @@ def run_device_mq(blocks_dev: torch.Tensor, nbps: np.ndarray,
         t_host += time.perf_counter() - t0
         tot_syms += int(cur_h.sum())
         tot_bytes += int(dlen_h.sum())
+        tot_passes += passes
         t_mark = seam.monotonic()
-    return MqDeviceResult(out, tot_syms, tot_bytes, t_cxd, t_mq, t_host)
+    return MqDeviceResult(out, tot_syms, tot_bytes, t_cxd, t_mq, t_host,
+                          tot_passes)
 
 
 # --- the CX/D split: device scan, host MQ replay -------------------------

@@ -939,9 +939,10 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
     # jobs at once: serialize the timing accumulator so segments stay
     # exact.
     tm_lock = threading.Lock()
-    # Symbols and MQ bytes over every Tier-1 attempt (the host block
-    # coder counts no symbols).
-    coded = [0, 0]
+    # Symbols, MQ bytes and assembled coding passes over every Tier-1
+    # attempt (the host block coder counts no symbols; only the fused
+    # path assembles passes).
+    coded = [0, 0, 0]
 
     def _tm_add(key: str, dt: float) -> None:
         with tm_lock:
@@ -1027,6 +1028,7 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
             with tm_lock:
                 coded[0] += res.total_syms
                 coded[1] += res.total_bytes
+                coded[2] += res.passes
             th0 = time.perf_counter()
             if not params.lossless:
                 _correct_distortions(res.blocks, chunk.fres)
@@ -1184,7 +1186,7 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
 
 
 def _record_encode(mode: str, tm: dict, wall_s: float, pixels: int,
-                   n_syms: int, n_mq_bytes: int) -> None:
+                   n_syms: int, n_mq_bytes: int, n_passes: int = 0) -> None:
     """One encode's segments on the metrics sink, under the JAX
     package's stage and counter names. ``mode`` is the front-end mode,
     or "legacy" for the host-sliced straddling grids; the host Tier-1
@@ -1203,6 +1205,9 @@ def _record_encode(mode: str, tm: dict, wall_s: float, pixels: int,
                     pixels=pixels, items=n_syms)
         sink.count("encode.mq_device_bytes", n_mq_bytes)
         sink.count("encode.cxd_symbols", n_syms)
+        # The coding passes the host assembled (the spans'
+        # encode.t1_assemble ``passes``, summed).
+        sink.count("encode.t1_passes", n_passes)
     elif mode == "cxd":
         # The split's host MQ replay, with its symbol throughput.
         sink.record("encode.cxd_device", tm["cxd"], pixels=pixels)

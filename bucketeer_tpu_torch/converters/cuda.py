@@ -14,6 +14,7 @@ import threading
 from .. import obs
 from ..codec import tiff
 from ..codec.encoder import EncodeParams
+from . import tiff_source
 from .base import Conversion, ConverterError, output_path
 
 LOG = logging.getLogger(__name__)
@@ -126,8 +127,20 @@ class CudaConverter:
         Tier-1 volume (code-blocks, symbols, MQ bytes)."""
         if not os.path.exists(source_path):
             raise ConverterError(f"source not found: {source_path}")
+        # Deep TIFFs (16-bit RGB, big-endian 16-bit gray) take the port's
+        # own reader: PIL would hand them back as 8-bit samples. Every
+        # other source reads through PIL.
         try:
-            img, bitdepth = tiff.read_image(source_path)
+            with obs.span("convert.read") as sp:
+                deep = tiff_source.deep(source_path)
+                img, bitdepth = (tiff_source.read_image if deep
+                                 else tiff.read_image)(source_path)
+                if sp is not None:
+                    sp.attrs.update(reader="deep" if deep else "pil",
+                                    bitdepth=bitdepth,
+                                    components=img.shape[2]
+                                    if img.ndim == 3 else 1,
+                                    bytes=img.nbytes)
         except Exception as exc:
             raise ConverterError(
                 f"cannot read {source_path}: {exc}") from exc
