@@ -2,8 +2,9 @@
 
 - **Fused** (:func:`run_device_mq`): Mb-clamped launch groups of the
   fused CX/D + MQ kernel (kernels/fused_t1.py), a row-granular fetch of
-  the finished byte segments, and host assembly into
-  ``t1.CodedBlock``s.
+  the finished byte segments, and host assembly into columns
+  (:class:`T1Columns`: flat per-block and per-pass arrays, no object
+  per pass), which encoder._finish reads as they are.
 - **CX/D split** (:func:`run_cxd`): the same launch groups through the
   CX/D scan alone (kernels/cxd_scan.py); the symbols are packed six bits
   each on the device (:func:`pack6`), the filled rows are fetched, and
@@ -22,6 +23,7 @@ or floored away) are in no group and cost nothing.
 """
 from __future__ import annotations
 
+import ctypes
 import time
 from dataclasses import dataclass
 
@@ -31,6 +33,7 @@ import torch
 from .. import obs
 from ..analysis import graftcost
 from ..analysis.graftrace import seam
+from ..kernels.build import Library
 from ..kernels.cxd_scan import cxd_scan
 from ..kernels.fused_t1 import (CBLK, MQ_ROW_BYTES, fused_t1, max_syms,
                                 mq_capacity)
@@ -41,10 +44,10 @@ from .rate import truncation_lengths
 from .t1 import BAND_CLS
 
 __all__ = ["CBLK", "MQ_ROW_BYTES", "LAUNCH_PLANE_BUCKETS", "SYMS_PER_ROW",
-           "PACKED_ROW_BYTES", "CxdStreams", "max_syms", "mq_capacity",
-           "rows_per_block", "pack6", "unpack6", "pass_tables",
-           "replay_block", "run_cxd", "run_device_mq",
-           "assemble_mq_blocks"]
+           "PACKED_ROW_BYTES", "CxdStreams", "T1Columns", "max_syms",
+           "mq_capacity", "rows_per_block", "ragged_ranges", "pack6",
+           "unpack6", "pass_tables", "replay_block", "run_cxd",
+           "run_device_mq", "assemble_mq_blocks"]
 
 SYMS_PER_ROW = 512                        # fetch granularity (symbols)
 PACKED_ROW_BYTES = SYMS_PER_ROW * 3 // 4  # 6 bits/symbol -> 384 bytes
@@ -52,6 +55,13 @@ PACKED_ROW_BYTES = SYMS_PER_ROW * 3 // 4  # 6 bits/symbol -> 384 bytes
 # Blocks per launch group below which a group merges into the next
 # larger plane bucket instead of paying its own launch.
 GROUP_MIN_BLOCKS = 4
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+T1_COLUMNS = Library("t1_columns", ("t1_columns.cpp",), {
+    "t1_group_passes": ([_I, _I] + [_P] * 10, None),
+    "t1_gather_bytes": ([_I] + [_P] * 4, None),
+}, cuda=False)
 
 # Allowed launch plane budgets. int32 magnitudes cap nbp at 31, so 32
 # covers everything.
@@ -128,6 +138,17 @@ def _check_sym_overflow(max_cursor: int, L: int) -> None:
             f"static capacity {max_syms(L)} (L={L})")
 
 
+def ragged_ranges(starts, lens) -> np.ndarray:
+    """The ranges ``[starts[i], starts[i] + lens[i])``, one after
+    another, as one int64 index array, with no loop per range
+    (``np.repeat`` of each range's start less its first output position,
+    plus the output positions)."""
+    lens = np.asarray(lens, np.int64)
+    heads = np.cumsum(lens) - lens
+    return (np.repeat(np.asarray(starts, np.int64) - heads, lens)
+            + np.arange(int(lens.sum())))
+
+
 def _fetch_block_rows(rows_dev: torch.Tensor, rows_needed: np.ndarray,
                       rpb: int, row_bytes: int):
     """Row-granular device->host fetch: block b owns rows
@@ -137,11 +158,7 @@ def _fetch_block_rows(rows_dev: torch.Tensor, rows_needed: np.ndarray,
     n = len(rows_needed)
     row_offsets = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(rows_needed, out=row_offsets[1:])
-    src = np.empty(int(row_offsets[-1]), dtype=np.int64)
-    for b in np.nonzero(rows_needed)[0]:
-        o = row_offsets[b]
-        src[o:row_offsets[b + 1]] = (b * rpb
-                                     + np.arange(rows_needed[b]))
+    src = ragged_ranges(np.arange(n, dtype=np.int64) * rpb, rows_needed)
     return gather_rows(rows_dev, src, row_bytes), row_offsets
 
 
@@ -178,20 +195,156 @@ def assemble_mq_blocks(nbps: np.ndarray, floors: np.ndarray,
 
 
 @dataclass
+class T1Columns:
+    """Tier-1 results of a run of code-blocks as columns, in block
+    order: block b's coding passes are ``pass_off[b]:pass_off[b + 1]``
+    of the per-pass arrays, in coding order, and its MQ bytes are
+    ``data[data_off[b]:data_off[b + 1]]``. The numbers are those
+    :func:`assemble_mq_blocks` puts in ``t1.CodedBlock``s; the dtypes
+    are those ``t2_native.Tier2`` hands to the native back half."""
+    nbps: np.ndarray       # (n,) int32 coded bit-planes (0: no pass)
+    pass_off: np.ndarray   # (n+1,) int32
+    types: np.ndarray      # (P,) int32 0=sigprop 1=magref 2=cleanup
+    planes: np.ndarray     # (P,) int32 bit-plane
+    cum_len: np.ndarray    # (P,) int64 truncation length after the pass
+    dist: np.ndarray       # (P,) float64 distortion reduction
+    data_off: np.ndarray   # (n+1,) int64
+    data: np.ndarray       # (data_off[-1],) uint8
+
+    @classmethod
+    def concat(cls, parts: list) -> "T1Columns":
+        """The columns of ``parts``' blocks, one part after another."""
+        def offsets(arrays, dtype):
+            out, base = [np.zeros(1, np.int64)], 0
+            for a in arrays:
+                out.append(a[1:].astype(np.int64) + base)
+                base += int(a[-1])
+            return np.concatenate(out).astype(dtype)
+
+        return cls(np.concatenate([c.nbps for c in parts]),
+                   offsets([c.pass_off for c in parts], np.int32),
+                   *(np.concatenate([getattr(c, k) for c in parts])
+                     for k in ("types", "planes", "cum_len", "dist")),
+                   offsets([c.data_off for c in parts], np.int64),
+                   np.concatenate([c.data for c in parts]))
+
+    def blocks(self, sink=None) -> list:
+        """The columns as ``t1.CodedBlock``s, for callers that read
+        objects (the tensor codec), counted on ``sink`` as
+        ``encode.t1_blocks_materialized``."""
+        po, do = self.pass_off.tolist(), self.data_off.tolist()
+        cols = [a.tolist() for a in (self.types, self.planes,
+                                     self.cum_len, self.dist)]
+        data = self.data.tobytes()
+        out = []
+        for b, nbp in enumerate(self.nbps.tolist()):
+            lo, hi = po[b], po[b + 1]
+            out.append(t1.CodedBlock(
+                data[do[b]:do[b + 1]], nbp,
+                [t1.PassInfo(*p) for p in zip(*(c[lo:hi] for c in cols))]))
+        if sink is not None:
+            sink.count("encode.t1_blocks_materialized", len(out))
+        return out
+
+
+def _chunk_columns(nbps: np.ndarray, floors: np.ndarray) -> T1Columns:
+    """A chunk's columns with every block's pass range laid out (a block
+    of ``eff = nbp - floor`` planes codes one cleanup pass on its first
+    and three on each plane below) and no data yet."""
+    eff = np.maximum(nbps.astype(np.int64) - floors.astype(np.int64), 0)
+    npass = np.where(eff > 0, 3 * eff - 2, 0)
+    pass_off = np.zeros(len(eff) + 1, np.int32)
+    np.cumsum(npass, out=pass_off[1:])
+    total = int(pass_off[-1])
+    return T1Columns(np.where(eff > 0, nbps, 0).astype(np.int32), pass_off,
+                     np.empty(total, np.int32), np.empty(total, np.int32),
+                     np.empty(total, np.int64), np.empty(total, np.float64),
+                     np.zeros(len(eff) + 1, np.int64),
+                     np.zeros(0, np.uint8))
+
+
+def _ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+def assemble_group_columns(cols: T1Columns, src: np.ndarray,
+                           idxs: np.ndarray, eff: np.ndarray,
+                           snaps: np.ndarray, dlens: np.ndarray,
+                           dists: np.ndarray, payload: np.ndarray,
+                           row_offsets: np.ndarray) -> None:
+    """Host assembly of one launch group into its chunk's columns, in
+    one native call (``csrc/t1_columns.cpp``), with no Python loop per
+    pass or block: the group's blocks ``idxs`` (ascending; ``eff``
+    planes each, 1 to L) fill their pass ranges of ``cols`` in coding
+    order, and ``src[i]`` becomes the address of block i's bytes in
+    ``payload``, which the caller keeps alive until
+    :func:`_gather_bytes`.
+
+    ``snaps``, ``dists`` (g, L, 3) are indexed by plane offset from each
+    block's MSB and pass type; ``dlens``, ``payload`` and
+    ``row_offsets`` are as :func:`assemble_mq_blocks` takes them."""
+    g, L = snaps.shape[:2]
+    eff = np.ascontiguousarray(eff, np.int64)
+    snaps = np.ascontiguousarray(snaps, np.int32)
+    dlens = np.ascontiguousarray(dlens, np.int32)
+    dists = np.ascontiguousarray(dists, np.float64)
+    row_offsets = np.asarray(row_offsets, np.int64)
+    ends = row_offsets[:-1] * MQ_ROW_BYTES + 1 + dlens
+    if snaps.shape != (g, L, 3) or dists.shape != (g, L, 3) or \
+            idxs.shape != (g,) or eff.shape != (g,) or \
+            dlens.shape != (g,) or row_offsets.shape != (g + 1,) or \
+            (g and not 1 <= eff.min() <= eff.max() <= L) or \
+            (np.diff(cols.pass_off)[idxs] != 3 * eff - 2).any() or \
+            (ends > row_offsets[1:] * MQ_ROW_BYTES)[dlens > 0].any() or \
+            payload.dtype != np.uint8 or \
+            payload.shape[1:] != (MQ_ROW_BYTES,) or \
+            not payload.flags.c_contiguous or \
+            row_offsets[-1] > len(payload):
+        raise ValueError(
+            f"launch group of {g} blocks at L={L}: snapshots "
+            f"{snaps.shape}, distortions {dists.shape}, {eff.shape} depths "
+            f"in 1..{L} matching the columns' pass ranges, {dlens.shape} "
+            f"stream lengths inside {row_offsets.shape} row offsets of a "
+            f"{payload.shape} {payload.dtype} payload")
+    dst = cols.pass_off[idxs].astype(np.int64)
+    nbps = np.ascontiguousarray(cols.nbps[idxs])
+    T1_COLUMNS.library().t1_group_passes(
+        g, L, _ptr(eff), _ptr(nbps), _ptr(snaps), _ptr(dlens),
+        _ptr(dists), _ptr(dst), _ptr(cols.types), _ptr(cols.planes),
+        _ptr(cols.cum_len), _ptr(cols.dist))
+    cols.data_off[idxs + 1] = dlens
+    src[idxs] = _ptr(payload) + row_offsets[:-1] * MQ_ROW_BYTES + 1
+
+
+def _gather_bytes(cols: T1Columns, src: np.ndarray) -> None:
+    """Turn the per-block byte counts ``cols.data_off[1:]`` into offsets
+    and copy every block's bytes from ``src`` into ``cols.data``, in
+    one native call."""
+    np.cumsum(cols.data_off, out=cols.data_off)
+    cols.data = np.empty(int(cols.data_off[-1]), np.uint8)
+    lens = np.diff(cols.data_off)
+    T1_COLUMNS.library().t1_gather_bytes(
+        len(lens), _ptr(src), _ptr(lens), _ptr(cols.data_off),
+        _ptr(cols.data))
+
+
+@dataclass
 class MqDeviceResult:
     """One chunk's device Tier-1 outcome, with the stage times the
     encoder's metrics report, in host-clock seconds as the JAX package
     keeps them. The fused kernel cannot split context modeling from MQ
     coding: ``cxd_s`` carries the fused launches (the launch and the
     small cursor/snapshot copies, whose ``.cpu()`` waits for the card)
-    and ``mq_s`` the byte-segment fetch."""
-    blocks: list               # [t1.CodedBlock]
+    and ``mq_s`` the byte-segment fetch. The fused path gives
+    ``cols``; the host coders give ``blocks``."""
+    blocks: list | None        # [t1.CodedBlock]
     total_syms: int
     total_bytes: int
     cxd_s: float               # fused launches and their small copies
     mq_s: float                # byte-segment fetch
     host_s: float              # host assembly (the entire host share)
     passes: int = 0            # coding passes assembled
+    cols: T1Columns | None = None
 
 
 def run_device_mq(blocks_dev: torch.Tensor, nbps: np.ndarray,
@@ -199,21 +352,30 @@ def run_device_mq(blocks_dev: torch.Tensor, nbps: np.ndarray,
                   ws: np.ndarray, frac_bits: int) -> MqDeviceResult:
     """Tier-1 for one chunk on the blocks' device: the fused kernel per
     Mb-clamped launch group, then a row-granular fetch of the finished
-    byte segments and per-pass snapshots, assembled on the host.
-    ``blocks_dev``: (n, 64, 64) int32."""
+    byte segments and per-pass snapshots, assembled on the host into
+    the chunk's :class:`T1Columns`. ``blocks_dev``: (n, 64, 64)
+    int32."""
     n = len(nbps)
     # Spans per launch group, tiling the call: encode.t1_launch runs from
     # the previous group's assembly (the call's start for the first
-    # group, so the group plan and the output list count) through the
-    # kernel's small copies and their checks; then encode.t1_fetch and
-    # encode.t1_assemble.
+    # group, so the group plan and the columns' layout count) through
+    # the kernel's small copies and their checks; then encode.t1_fetch
+    # and encode.t1_assemble. The last group's assembly span also holds
+    # the gather of the chunk's bytes, so each is recorded once the next
+    # launch starts or the bytes are gathered.
     ctx = obs.current_context()
     t_mark = seam.monotonic()
-    out = [t1.CodedBlock(b"", 0) for _ in range(n)]
+    cols = _chunk_columns(nbps, floors)
+    src = np.zeros(n, np.int64)     # each block's bytes in its payload
+    payloads = []                   # alive until the bytes are gathered
     tot_syms = tot_bytes = tot_passes = 0
     t_cxd = t_mq = t_host = 0.0
+    held = None
     for L, idxs, args in _group_launches(blocks_dev, nbps, floors,
                                          bandnames, hs, ws):
+        if held is not None:
+            obs.record_span("encode.t1_assemble", *held[:2], ctx,
+                            **held[2])
         cap = mq_capacity(max_syms(L))
         t0 = time.perf_counter()
         rows, snaps, dlen, dh, dl, cur, curb = fused_t1(L, frac_bits,
@@ -240,25 +402,29 @@ def run_device_mq(blocks_dev: torch.Tensor, nbps: np.ndarray,
             payload, row_offs = _fetch_block_rows(
                 rows, rows_needed, cap // MQ_ROW_BYTES, MQ_ROW_BYTES)
         t_mq += time.perf_counter() - t0
-        # A block of nbp planes above its floor has one cleanup pass on
-        # its first plane and three on each plane below.
-        planes = np.maximum(nbps[idxs].astype(np.int64) - floors[idxs], 0)
-        passes = int(np.maximum(3 * planes - 2, 0).sum())
+        eff = (nbps[idxs].astype(np.int64)
+               - floors[idxs].astype(np.int64))
+        passes = int((3 * eff - 2).sum())
         t0 = time.perf_counter()
-        with obs.span("encode.t1_assemble", blocks=len(idxs), L=L,
-                      passes=passes):
-            blocks_g = assemble_mq_blocks(nbps[idxs], floors[idxs],
-                                          snaps_h, dlen_h, dist, payload,
-                                          row_offs)
-            for k, i in enumerate(idxs):
-                out[int(i)] = blocks_g[k]
+        t_asm = seam.monotonic()
+        assemble_group_columns(cols, src, idxs, eff, snaps_h, dlen_h,
+                               dist, payload, row_offs)
+        payloads.append(payload)
         t_host += time.perf_counter() - t0
         tot_syms += int(cur_h.sum())
         tot_bytes += int(dlen_h.sum())
         tot_passes += passes
         t_mark = seam.monotonic()
-    return MqDeviceResult(out, tot_syms, tot_bytes, t_cxd, t_mq, t_host,
-                          tot_passes)
+        held = (t_asm, t_mark, {"blocks": len(idxs), "L": L,
+                                "passes": passes})
+    t0 = time.perf_counter()
+    _gather_bytes(cols, src)
+    t_host += time.perf_counter() - t0
+    if held is not None:
+        obs.record_span("encode.t1_assemble", held[0], seam.monotonic(),
+                        ctx, **held[2])
+    return MqDeviceResult(None, tot_syms, tot_bytes, t_cxd, t_mq, t_host,
+                          tot_passes, cols)
 
 
 # --- the CX/D split: device scan, host MQ replay -------------------------

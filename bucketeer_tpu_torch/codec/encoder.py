@@ -1031,7 +1031,10 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
                 coded[2] += res.passes
             th0 = time.perf_counter()
             if not params.lossless:
-                _correct_distortions(res.blocks, chunk.fres)
+                if res.cols is None:
+                    _correct_distortions(res.blocks, chunk.fres)
+                else:
+                    _correct_distortions_columns(res.cols, chunk.fres)
             # The whole host share: assembly + distortion correction.
             _tm_add("host", res.host_s + time.perf_counter() - th0)
             fut: Future = Future()
@@ -1134,8 +1137,7 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
                 for chunk, floors in zip(chunks, floors_by_chunk):
                     tier1(pool, chunk, floors, False, futs)
                 results = [f.result() for f in futs]
-                avail = sum(len(b.data) for res in results
-                            for b in res.blocks)
+                avail = sum(res.total_bytes for res in results)
                 if avail >= 1.05 * target:
                     if attempt == 2 or avail >= 2.0 * target:
                         # Out of retries, or supply is so abundant that
@@ -1143,10 +1145,15 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
                         break
                     # Supply is snug: compare the realized PCRD cut
                     # slope against the floor threshold.
-                    flat = [b for res in results for b in res.blocks]
                     wts_all = np.concatenate([c.wts for c in chunks])
-                    realized = rate_mod.cut_slope(flat, wts_all,
-                                                  target * 0.96)
+                    if results[0].cols is None:
+                        realized = rate_mod.cut_slope(
+                            [b for res in results for b in res.blocks],
+                            wts_all, target * 0.96)
+                    else:
+                        realized = _cut_slope_columns(
+                            [res.cols for res in results], wts_all,
+                            target * 0.96)
                     if realized >= floor_lam[0] / 4.0:
                         break
                     if _metrics_sink is not None:
@@ -1161,10 +1168,15 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
 
     all_coded: list = []
     block_weights: list = []
-    assign_index: dict = {}     # id(CodedBlock) -> index
+    assign_index: dict = {}     # id(block) -> index
+    columns = None
     with obs.span("encode.reassemble", chunks=len(chunks)):
+        if results[0].cols is not None:
+            columns = cxd_mod.T1Columns.concat([res.cols for res in results])
         for chunk, res in zip(chunks, results):
-            for (band, cy, cx), blk, bw in zip(chunk.dests, res.blocks,
+            blocks = res.blocks if res.cols is None else [
+                _ColumnBlock(nbp) for nbp in res.cols.nbps.tolist()]
+            for (band, cy, cx), blk, bw in zip(chunk.dests, blocks,
                                                chunk.wts):
                 if blk.n_bitplanes > band.q.n_bitplanes:
                     raise ValueError(
@@ -1182,7 +1194,7 @@ def encode_array(img: np.ndarray, bitdepth: int = 8,
         stats["bytes"] = sum(res.total_bytes for res in results)
     return _finish(img, params, tile_records, all_coded, block_weights,
                    assign_index, qcd_values, used_mct, bitdepth, n_comps,
-                   levels, tile, target)
+                   levels, tile, target, columns=columns)
 
 
 def _record_encode(mode: str, tm: dict, wall_s: float, pixels: int,
@@ -1264,22 +1276,26 @@ def _fit_to_target(build, target: float | None) -> bytes:
 def _finish(img: np.ndarray, params: EncodeParams, tile_records: list,
             all_blocks: list, block_weights: list, assign_index: dict,
             qcd_values: list, used_mct: bool, bitdepth: int, n_comps: int,
-            levels: int, tile: int, target: float | None) -> bytes:
+            levels: int, tile: int, target: float | None,
+            columns: cxd_mod.T1Columns | None = None) -> bytes:
     """PCRD layer allocation + Tier-2 + codestream assembly, iterated a
     few times so the assembled file size (headers included) lands on the
-    byte target. The blocks are flattened and the packets planned once
-    (span ``encode.t2_plan``); each build runs in C++
-    (codec/t2_native.py), counted as ``encode.t2_native``."""
+    byte target. The packets are planned once, and the blocks' passes
+    and bytes taken once (span ``encode.t2_plan``): the fused Tier-1's
+    ``columns`` as they are (``all_blocks`` then holds a record per
+    block), else the ``t1.CodedBlock``s flattened. Each build runs in
+    C++ (codec/t2_native.py), counted as ``encode.t2_native``."""
     exps = _precinct_exps(params, levels)
     segs = _main_segments(img, params, exps, qcd_values, used_mct,
                           bitdepth, n_comps, levels, tile)
     with obs.span("encode.tier2", path="native") as sp:
         with obs.span("encode.t2_plan", blocks=len(all_blocks)):
-            native = t2_native.Tier2(
-                all_blocks, block_weights,
-                _packet_plan(params, tile_records, assign_index, exps,
-                             levels, n_comps),
-                params.n_layers, params.use_eph, params.gen_plt)
+            plan = _packet_plan(params, tile_records, assign_index, exps,
+                                levels, n_comps)
+            args = (block_weights, plan, params.n_layers, params.use_eph,
+                    params.gen_plt)
+            native = (t2_native.Tier2(all_blocks, *args) if columns is None
+                      else t2_native.Tier2.from_columns(columns, *args))
         builds = 0
 
         def build(budget: float | None) -> bytes:
@@ -1356,6 +1372,72 @@ def _correct_distortions(blocks: list, fres) -> None:
                      else fres.sigd[bi, p])
             if est > 0.0 and exact >= 0.0:
                 info.dist_reduction *= exact / est
+
+
+def _correct_distortions_columns(cols: cxd_mod.T1Columns, fres) -> None:
+    """:func:`_correct_distortions` on a chunk's columns, float for
+    float: the estimates are the per-(block, plane, kind) sums of the
+    passes' distortions in pass order (``np.bincount`` adds in index
+    order from 0.0, as the loop does), and each pass is scaled under the
+    same tests. The loop divides a statistic (a NumPy scalar) by a
+    Python float and multiplies a Python float by the quotient, so
+    NumPy's promotion of that scalar with a Python float sets the
+    precision of both; the arrays take the same."""
+    P = fres.layout.P
+    npass = np.diff(cols.pass_off)
+    blk = np.repeat(np.arange(len(npass)), npass)
+    plane = cols.planes.astype(np.int64)
+    ref = cols.types == 1
+    key = (blk * P + plane) * 2 + ref
+    est = np.bincount(key, weights=cols.dist,
+                      minlength=len(npass) * P * 2)[key]
+    exact = np.where(ref, fres.refd[blk, plane], fres.sigd[blk, plane])
+    fix = (est > 0.0) & (exact >= 0.0)
+    dt = (exact.dtype.type(1) / 1.0).dtype
+    cols.dist[fix] = cols.dist[fix].astype(dt) * (
+        exact[fix].astype(dt) / est[fix].astype(dt))
+
+
+def _cut_slope_columns(parts: list, weights: np.ndarray,
+                       target_bytes: float | None) -> float:
+    """``rate.cut_slope`` on the fused path's columns (``parts``, the
+    chunks' in order; ``weights`` per block over all of them), with the
+    same value: the same raw slopes in the same order, then the same
+    cut."""
+    if target_bytes is None:
+        return 0.0
+    slopes, lens = [], []
+    at = 0
+    for cols in parts:
+        npass = np.diff(cols.pass_off)
+        w = np.repeat(weights[at:at + len(npass)], npass)
+        at += len(npass)
+        prev = np.empty_like(cols.cum_len)
+        prev[1:] = cols.cum_len[:-1]
+        prev[cols.pass_off[:-1][npass > 0]] = 0
+        dl = cols.cum_len - prev
+        keep = (dl > 0) & (cols.dist > 0)
+        slopes.append(cols.dist[keep] * w[keep] / dl[keep])
+        lens.append(dl[keep])
+    s = np.concatenate(slopes)
+    if not s.size:
+        return 0.0
+    order = np.argsort(-s)
+    cum = np.cumsum(np.concatenate(lens).astype(np.float64)[order])
+    k = int(np.searchsorted(cum, target_bytes))
+    if k >= len(s):
+        return 0.0      # everything fit: the cut never bound
+    return float(s[order[k]])
+
+
+class _ColumnBlock:
+    """A code-block of the fused path, whose passes and bytes are
+    columns of the encode's ``cxd.T1Columns``: its coded bit-planes,
+    and an identity for ``_packet_plan``."""
+    __slots__ = ("n_bitplanes",)
+
+    def __init__(self, n_bitplanes: int) -> None:
+        self.n_bitplanes = n_bitplanes
 
 
 def _qcd_values(plan: TilePlan) -> list:

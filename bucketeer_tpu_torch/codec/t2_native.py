@@ -1,9 +1,11 @@
 """The native host back half: PCRD-opt layer allocation and Tier-2
 packet writing in C++ (``csrc/host_t2.cpp``), behind encoder._finish.
 
-:class:`Tier2` is made once per encode, from the coded blocks (flattened
-into arrays: pass counts, truncation lengths, distortions, weights and
-the concatenated data) and a :class:`PacketPlan` (every packet in
+:class:`Tier2` is made once per encode, from the coded blocks as arrays
+(pass offsets, truncation lengths, distortions, weights and the
+concatenated data: the fused Tier-1's columns, codec/cxd.py
+``T1Columns``, as they are, or ``t1.CodedBlock``s flattened) and a
+:class:`PacketPlan` (every packet in
 codestream order, from the geometry and progression that
 encoder._build_precincts and encoder._packet_sequence compute). Each
 :meth:`Tier2.build` then runs the allocation and the packets for one
@@ -66,25 +68,58 @@ class Tier2:
 
     def __init__(self, blocks: list, weights, plan: PacketPlan,
                  n_layers: int, use_eph: bool, gen_plt: bool) -> None:
+        """From ``t1.CodedBlock``s, flattened."""
         n = len(blocks)
         npasses = np.fromiter((len(b.passes) for b in blocks), np.int32, n)
-        self.pass_off = np.zeros(n + 1, np.int32)
-        np.cumsum(npasses, out=self.pass_off[1:])
-        total = int(self.pass_off[-1])
-        self.cum_len = np.fromiter(
-            (p.cum_length for b in blocks for p in b.passes), np.int64,
-            total)
-        self.dist = np.fromiter(
-            (p.dist_reduction for b in blocks for p in b.passes),
-            np.float64, total)
-        self.data_off = np.zeros(n + 1, np.int64)
+        pass_off = np.zeros(n + 1, np.int32)
+        np.cumsum(npasses, out=pass_off[1:])
+        total = int(pass_off[-1])
+        data_off = np.zeros(n + 1, np.int64)
         np.cumsum(np.fromiter((len(b.data) for b in blocks), np.int64, n),
-                  out=self.data_off[1:])
-        self.data = np.frombuffer(b"".join(b.data for b in blocks) or b"\0",
-                                  np.uint8)
+                  out=data_off[1:])
+        self._setup(
+            pass_off,
+            np.fromiter((p.cum_length for b in blocks for p in b.passes),
+                        np.int64, total),
+            np.fromiter((p.dist_reduction for b in blocks
+                         for p in b.passes), np.float64, total),
+            data_off, np.frombuffer(b"".join(b.data for b in blocks),
+                                    np.uint8),
+            weights, plan, n_layers, use_eph, gen_plt)
+
+    @classmethod
+    def from_columns(cls, cols, weights, plan: PacketPlan, n_layers: int,
+                     use_eph: bool, gen_plt: bool) -> "Tier2":
+        """From the fused Tier-1's columns (codec/cxd.py ``T1Columns``)
+        of the encode's blocks, as they are."""
+        self = cls.__new__(cls)
+        self._setup(cols.pass_off, cols.cum_len, cols.dist, cols.data_off,
+                    cols.data, weights, plan, n_layers, use_eph, gen_plt)
+        return self
+
+    def _setup(self, pass_off, cum_len, dist, data_off, data, weights,
+               plan: PacketPlan, n_layers: int, use_eph: bool,
+               gen_plt: bool) -> None:
+        n = len(pass_off) - 1
+        self.pass_off = np.ascontiguousarray(pass_off, np.int32)
+        total = int(self.pass_off[-1])
+        self.cum_len = np.ascontiguousarray(cum_len, np.int64)
+        self.dist = np.ascontiguousarray(dist, np.float64)
+        self.data_off = np.ascontiguousarray(data_off, np.int64)
+        # A pointer into a buffer of at least one byte.
+        self.data = np.ascontiguousarray(data, np.uint8) if len(data) \
+            else np.zeros(1, np.uint8)
         self.weights = np.ascontiguousarray(weights, np.float64)
         if self.weights.shape != (n,):
             raise ValueError(f"{n} blocks but {self.weights.shape} weights")
+        if self.cum_len.shape != (total,) or self.dist.shape != (total,) \
+                or self.data_off.shape != (n + 1,) \
+                or int(self.data_off[-1]) > len(data):
+            raise ValueError(
+                f"{n} blocks of {total} passes and {int(self.data_off[-1])}"
+                f" bytes, but {self.cum_len.shape} lengths, "
+                f"{self.dist.shape} distortions, {self.data_off.shape} "
+                f"data offsets and {len(data)} bytes")
         self.plan = plan
         self.n_blocks = n
         self.n_layers = n_layers

@@ -193,7 +193,8 @@ def encode_chunk_device(rows: np.ndarray, floors: np.ndarray,
     if backend == "device":
         res = cxd_mod.run_device_mq(blocks, nbps, floors, bandnames, hs,
                                     hs, 0)
-        return res.blocks, res.total_syms, time.perf_counter() - t0
+        return (res.cols.blocks(_metrics_sink), res.total_syms,
+                time.perf_counter() - t0)
     streams = cxd_mod.run_cxd(blocks, nbps, floors, bandnames, hs, hs, 0)
     dev_s = time.perf_counter() - t0
     return t1_batch.encode_cxd(streams), streams.total_syms, dev_s

@@ -1258,9 +1258,10 @@ def phase_breakdown(conv, src: str, split: bool):
     else:
         stages = head + [("tier-1 (kernel)", cxd, "fused_t1"),
                          ("tier-1 (fetch)", cxd, "_fetch_block_rows"),
-                         ("tier-1 (assembly)", cxd, "assemble_mq_blocks"),
+                         ("tier-1 (assembly)", cxd,
+                          "assemble_group_columns"),
                          ("distortion rescale", encoder,
-                          "_correct_distortions")] + tail
+                          "_correct_distortions_columns")] + tail
         worker = []
     real = cxd.fused_t1
     capture = None

@@ -1,6 +1,6 @@
 """The port's device-MQ half (codec/cxd.py run_device_mq: launch groups,
-the fused Tier-1, row fetch, host assembly) gives code-blocks equal to
-the JAX package's run_device_mq, field for field."""
+the fused Tier-1, row fetch, host assembly into columns) gives
+code-blocks equal to the JAX package's run_device_mq, field for field."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -54,12 +54,13 @@ def test_run_device_mq_matches_jax(frac):
                               bands, hs, ws, frac)
     assert got.total_syms == ref.total_syms
     assert got.total_bytes == ref.total_bytes
-    assert len(got.blocks) == len(ref.blocks)
-    for i, (g, r) in enumerate(zip(got.blocks, ref.blocks)):
+    blocks = got.cols.blocks()
+    assert len(blocks) == len(ref.blocks)
+    for i, (g, r) in enumerate(zip(blocks, ref.blocks)):
         assert g.data == r.data, f"block {i}"
         assert g.n_bitplanes == r.n_bitplanes
         assert [(p.pass_type, p.bitplane, p.cum_length, p.dist_reduction)
                 for p in g.passes] == [
             (p.pass_type, p.bitplane, p.cum_length, p.dist_reduction)
             for p in r.passes], f"block {i}"
-    assert got.blocks[4].data == b"" and not got.blocks[4].passes
+    assert blocks[4].data == b"" and not blocks[4].passes

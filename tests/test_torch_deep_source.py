@@ -337,18 +337,17 @@ def test_rgb16_fused_path_equals_jax_with_partial_tiles(recorder):
     jp, tp = _kakadu(levels=3, tile_size=32)
     tp.device_mq = True
     assembled = []
-    real = cxd.assemble_mq_blocks
+    real = cxd.assemble_group_columns
 
-    def counting(*a):
-        blocks = real(*a)
-        assembled.append(sum(len(b.passes) for b in blocks))
-        return blocks
+    def counting(cols, src, idxs, eff, *a):
+        real(cols, src, idxs, eff, *a)
+        assembled.append(int(np.diff(cols.pass_off)[idxs].sum()))
 
     sink = Metrics()
     t_encoder.set_metrics_sink(sink)
     try:
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(cxd, "assemble_mq_blocks", counting)
+            mp.setattr(cxd, "assemble_group_columns", counting)
             with obs.request_context("fused-16"):
                 got = t_encoder.encode_jp2(img, 16, tp, device="cpu")
     finally:

@@ -37,15 +37,15 @@ def test_cli_strict_exits_zero():
 def test_abi_tables_are_discovered():
     """Guard against the cross-check silently losing the binding tables
     (an empty table set would make the ABI rules vacuous): every kernel
-    library, the host coder and the host back half are read, with their
-    arities."""
+    library, the host coder, the fused Tier-1's column assembly and the
+    host back half are read, with their arities."""
     project = lint.load_project(PKG)
     tables = {}
     for mod in project.modules:
         for lib, sources, table in abi.parse_bindings(mod.tree):
             tables[lib] = (sources, {s: n for s, (n, _) in table.items()})
     assert set(tables) == {"fused_t1", "cxd_scan", "mq_scan", "probe",
-                           "host_t1", "host_t2"}
+                           "host_t1", "host_t2", "t1_columns"}
     assert tables["probe"] == (("probe.cu",), {"probe_launch": 4})
     assert tables["fused_t1"][1] == {"fused_t1_launch": 22,
                                      "fused_t1_occupancy": 2}
@@ -59,6 +59,11 @@ def test_abi_tables_are_discovered():
         "t2_result_take": 2})
     assert abi.parse_c_exports(
         (PKG / "csrc" / "host_t2.cpp").read_text()) == tables["host_t2"][1]
+    assert tables["t1_columns"] == (("t1_columns.cpp",), {
+        "t1_group_passes": 12, "t1_gather_bytes": 5})
+    assert abi.parse_c_exports(
+        (PKG / "csrc" / "t1_columns.cpp").read_text()) == \
+        tables["t1_columns"][1]
 
 
 _CU = """\

@@ -70,6 +70,10 @@ ALLOWED_DIFFERENCE = {("converters", "tpu"): ("converters", "cuda")}
 # the first time a process runs it); the port compiles no XLA program and
 # has no such counter (server/app.py says so).
 JAX_ONLY_COUNTERS = "retrace."
+# The port's fused Tier-1 hands back columns; the tensor codec's device
+# backend (tensor and batch encodes) turns them into code-blocks and
+# counts them, where the JAX app's hands back code-blocks as they are.
+PORT_ONLY_COUNTERS = "encode.t1_blocks_materialized"
 
 CSV_TEXT = "Item ARK,File Name\nark:/1/a,imgA.tif\nark:/1/b,imgB.tif\n"
 
@@ -246,7 +250,7 @@ def _metrics_delta(before, after, skip=()):
     stages it timed (by name), its counter increments (by value), the
     breaker section (by value), the sections present (by key). Names
     starting with one of ``skip`` are left out."""
-    skip = (JAX_ONLY_COUNTERS,) + tuple(skip)
+    skip = (JAX_ONLY_COUNTERS, PORT_ONLY_COUNTERS) + tuple(skip)
 
     def count(rep, k):
         return rep["stages"].get(k, {}).get("count", 0)

@@ -92,7 +92,9 @@ def encoded():
             seen = {}
             real = encoder._finish
 
-            def grab(*args):
+            def grab(*args, columns=None):
+                # The host coders' blocks: objects, no columns.
+                assert columns is None
                 seen["args"] = args
                 seen["out"] = real(*args)
                 return seen["out"]
